@@ -1,0 +1,27 @@
+"""Stdlib-only telemetry: spans on a wall or tick clock, counters, gauges, histograms."""
+
+from .spans import (
+    TICK_SCALE,
+    WALL,
+    Counter,
+    Gauge,
+    Histogram,
+    Span,
+    Telemetry,
+    TickClock,
+    WallClock,
+    get_telemetry,
+)
+
+__all__ = [
+    "TICK_SCALE",
+    "WALL",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Span",
+    "Telemetry",
+    "TickClock",
+    "WallClock",
+    "get_telemetry",
+]

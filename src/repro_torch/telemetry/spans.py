@@ -1,0 +1,184 @@
+"""Telemetry core: spans on a pluggable clock, counters, gauges, histograms.
+
+The port's own copy of the parts of the reference's
+``repro/telemetry/spans.py`` that the serving engine records into.  It is
+stdlib-only.  While the engine steps it installs its :class:`TickClock`,
+so span timestamps count engine ticks, never wall time, and a replayed
+workload gives the same event stream.
+"""
+
+from __future__ import annotations
+
+import bisect
+import time
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional
+
+TICK_SCALE = 1_000_000  # one engine tick rendered as this many trace-us
+
+
+class WallClock:
+    """Wall time in microseconds."""
+
+    kind = "wall"
+
+    def now(self) -> float:
+        return time.perf_counter() * 1e6
+
+
+WALL = WallClock()
+
+
+class TickClock:
+    """Deterministic clock counted in engine ticks: ``tick * TICK_SCALE + seq``,
+    where ``seq`` counts reads within the tick."""
+
+    kind = "tick"
+
+    def __init__(self) -> None:
+        self.tick = 0
+        self._seq = 0
+
+    def advance(self, tick: Optional[int] = None) -> None:
+        self.tick = self.tick + 1 if tick is None else int(tick)
+        self._seq = 0
+
+    def now(self) -> int:
+        ts = self.tick * TICK_SCALE + self._seq
+        self._seq += 1
+        return ts
+
+
+class Span:
+    """One timed region; ``end is None`` while it is open."""
+
+    __slots__ = ("name", "start", "end", "depth", "attrs")
+
+    def __init__(self, name: str, start, depth: int, attrs: Dict[str, object]):
+        self.name = name
+        self.start = start
+        self.end = None
+        self.depth = depth
+        self.attrs = attrs
+
+    def set(self, key: str, value: object) -> None:
+        self.attrs[key] = value
+
+
+class Counter:
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0
+
+    def add(self, v=1) -> None:
+        self.value += v
+
+
+class Gauge:
+    """Last/min/max of a sampled value."""
+
+    __slots__ = ("last", "min", "max")
+
+    def __init__(self) -> None:
+        self.last = None
+        self.min = None
+        self.max = None
+
+    def set(self, v) -> None:
+        self.last = v
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+
+
+# 1-2-5 bucket ladder from 1 to 5e7; the last bucket is open.
+DEFAULT_BOUNDS = tuple(m * 10**e for e in range(8) for m in (1, 2, 5))
+
+
+class Histogram:
+    """Fixed buckets plus the raw samples, so percentiles are exact
+    (numpy's default linear interpolation)."""
+
+    __slots__ = ("bounds", "bucket_counts", "samples")
+
+    def __init__(self, bounds=DEFAULT_BOUNDS):
+        self.bounds = tuple(bounds)
+        self.bucket_counts = [0] * (len(self.bounds) + 1)
+        self.samples: List[float] = []
+
+    def record(self, v) -> None:
+        v = float(v)
+        self.samples.append(v)
+        self.bucket_counts[bisect.bisect_left(self.bounds, v)] += 1
+
+    def percentile(self, q: float) -> float:
+        if not self.samples:
+            return 0.0
+        s = sorted(self.samples)
+        h = (len(s) - 1) * (q / 100.0)
+        lo = int(h)
+        if lo >= len(s) - 1:
+            return s[-1]
+        return s[lo] + (h - lo) * (s[lo + 1] - s[lo])
+
+    def stats(self) -> dict:
+        if not self.samples:
+            return {"count": 0}
+        return {
+            "count": len(self.samples),
+            "mean": sum(self.samples) / len(self.samples),
+            "min": min(self.samples),
+            "max": max(self.samples),
+            "p50": self.percentile(50),
+            "p95": self.percentile(95),
+            "p99": self.percentile(99),
+        }
+
+
+class Telemetry:
+    """One registry of spans, counters, gauges and histograms."""
+
+    def __init__(self, clock=None):
+        self.clock = clock if clock is not None else WallClock()
+        self.spans: List[Span] = []
+        self._stack: List[Span] = []
+        self.counters: Dict[str, Counter] = {}
+        self.gauges: Dict[str, Gauge] = {}
+        self.histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        return self.counters.setdefault(name, Counter())
+
+    def gauge(self, name: str) -> Gauge:
+        return self.gauges.setdefault(name, Gauge())
+
+    def histogram(self, name: str) -> Histogram:
+        return self.histograms.setdefault(name, Histogram())
+
+    @contextmanager
+    def span(self, name: str, **attrs) -> Iterator[Span]:
+        sp = Span(name, self.clock.now(), len(self._stack), dict(attrs))
+        self.spans.append(sp)
+        self._stack.append(sp)
+        try:
+            yield sp
+        finally:
+            sp.end = self.clock.now()
+            while self._stack and self._stack.pop() is not sp:
+                pass
+
+    @contextmanager
+    def use_clock(self, clock) -> Iterator[None]:
+        prev, self.clock = self.clock, clock
+        try:
+            yield
+        finally:
+            self.clock = prev
+
+
+_ROOT = Telemetry()
+
+
+def get_telemetry() -> Telemetry:
+    """The process-wide registry the engine records into."""
+    return _ROOT

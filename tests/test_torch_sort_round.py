@@ -1,0 +1,100 @@
+"""K4's plain version against the JAX Pallas round, bit for bit.
+
+The JAX side runs ``sort_round_kv_pallas`` in interpret mode, as the JAX
+package's own tests do on the CPU.  The port's CUDA kernel is not built
+here: on a CPU tensor ``sort_round_kv`` takes its plain version, which is
+what these tests hold against the reference.  ``chip_smoke.py`` holds the
+kernel against the same plain version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.merge_path import sort_round_kv_pallas
+from repro_torch.kernels import merge_path as km
+
+M, TILE, LEAF = 512, 64, 8
+
+
+def _round_input(dtype, width, seed):
+    """Runs of ``width`` sorted keys with heavy duplicates and keys equal to
+    the sentinel, int32 values, then the sentinel/zero tail."""
+    rng = np.random.default_rng(seed)
+    imax = np.iinfo(dtype).max
+    keys = rng.integers(-4, 4, size=M).astype(dtype)
+    keys[rng.random(M) < 0.2] = imax
+    keys[M // 2 : M // 2 + width] = imax  # one whole run of sentinel-equal keys
+    vals = rng.permutation(M).astype(np.int32)
+    order = np.argsort(keys.reshape(-1, width), axis=1, kind="stable")
+    keys = np.take_along_axis(keys.reshape(-1, width), order, 1).reshape(-1)
+    vals = np.take_along_axis(vals.reshape(-1, width), order, 1).reshape(-1)
+    kf = np.concatenate([keys, np.full(TILE, imax, dtype)])
+    vf = np.concatenate([vals, np.zeros(TILE, np.int32)])
+    return kf, vf
+
+
+@pytest.mark.parametrize(
+    "dtype,width",
+    [(np.int16, 32), (np.int16, 64), (np.int16, 128), (np.int16, 256), (np.int32, 32), (np.int32, 256)],
+)
+def test_sort_round_kv_matches_pallas(dtype, width):
+    kf, vf = _round_input(dtype, width, seed=width)
+    wk, wv = sort_round_kv_pallas(jnp.asarray(kf), jnp.asarray(vf), width, tile=TILE, leaf=LEAF, interpret=True)
+    before = km.sort_round_kv.launches
+    gk, gv = km.sort_round_kv(torch.from_numpy(kf), torch.from_numpy(vf), width, tile=TILE, leaf=LEAF)
+    assert km.sort_round_kv.launches == before  # the CPU path launches nothing
+    assert gk.dtype == torch.from_numpy(kf).dtype and gv.dtype == torch.int32
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_sort_round_chain_sorts_stably():
+    """Rounds from width 1 up sort the buffer: a stable argsort of the keys."""
+    kf, vf = _round_input(np.int32, 1, seed=7)
+    want = np.argsort(kf[:M], kind="stable")
+    k, v = torch.from_numpy(kf), torch.from_numpy(vf)
+    width = TILE // 2
+    k32, v32 = k[:M].view(-1, width), v[:M].view(-1, width)  # narrow rounds are the core's job
+    s, perm = torch.sort(k32, dim=1, stable=True)
+    k = torch.cat([s.reshape(-1), k[M:]])
+    v = torch.cat([torch.gather(v32, 1, perm).reshape(-1), v[M:]])
+    while width < M:
+        k, v = km.sort_round_kv(k, v, width, tile=TILE, leaf=LEAF)
+        width *= 2
+    np.testing.assert_array_equal(v[:M].numpy(), vf[want])
+    np.testing.assert_array_equal(k[M:].numpy(), np.full(TILE, np.iinfo(np.int32).max))
+    np.testing.assert_array_equal(v[M:].numpy(), np.zeros(TILE, np.int32))
+
+
+@pytest.mark.parametrize(
+    "key_dtype,value_dtype,n,width,tile,error",
+    [
+        (torch.int64, torch.int32, M + TILE, 64, TILE, TypeError),
+        (torch.int32, torch.int64, M + TILE, 64, TILE, TypeError),
+        (torch.int32, torch.int32, M + TILE, 48, TILE, ValueError),  # width not a power of two
+        (torch.int32, torch.int32, M + TILE + 48, 64, 48, ValueError),  # tile not a power of two
+        (torch.int32, torch.int32, M + TILE, 16, TILE, ValueError),  # tile does not divide 2 * width
+        (torch.int32, torch.int32, M + TILE + 1, 64, TILE, ValueError),  # data not whole pairs
+    ],
+)
+def test_sort_round_kv_rejects_bad_operands(key_dtype, value_dtype, n, width, tile, error):
+    kf, vf = torch.zeros(n, dtype=key_dtype), torch.zeros(n, dtype=value_dtype)
+    with pytest.raises(error):
+        km.sort_round_kv(kf, vf, width, tile=tile)
+
+
+def test_sort_round_kv_rejects_strided_operands():
+    kf = torch.zeros(2 * (M + TILE), dtype=torch.int32)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        km.sort_round_kv(kf, torch.zeros(M + TILE, dtype=torch.int32), 64, tile=TILE)
+
+
+def test_sort_round_kv_has_no_fallback_off_the_cpu():
+    """A tensor that is neither on the CPU nor on a card is refused, not
+    sent to the plain version."""
+    kf = torch.zeros(M + TILE, dtype=torch.int16, device="meta")
+    vf = torch.zeros(M + TILE, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        km.sort_round_kv(kf, vf, 64, tile=TILE)
