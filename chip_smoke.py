@@ -6,18 +6,25 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. card: the name and power limit as ``nvidia-smi`` reports them;
-2. build: every kernel under ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+2. build: every kernel under ``src/repro_torch/kernels/csrc`` with ``nvcc``,
+   one process per source, all started together; each source's build time
+   and what ``ptxas -v`` says of its kernels;
 3. K4 against its plain version on the card, bit for bit: every wide
    round of the sampler's sort (m = 32768 + 512, widths 512 ... 16384) on
    int16 and int32 keys drawn from adversarial rows, then whole top-k
    sorts at (1, 32000) and (64, 32000); with CUDA-event times of the
    kernel, the plain version and one stable ``torch.sort`` (a yardstick the
    port never calls);
-4. serving: ``ServingEngine`` on tinyllama-1.1b at full width (random
+4. merge and sort at 2 x 2^24 elements (:func:`phase_merge_sort`): K1, K2
+   and K3 against their plain versions, bit for bit, over adversarial input
+   families; the whole path (``ops.merge``, ``ops.merge_kv``, ``ops.sort``,
+   ``ops.sort_batched``) driven once with the launch counts read; CUDA-event
+   times of each kernel, its plain version and one PyTorch call;
+5. serving: ``ServingEngine`` on tinyllama-1.1b at full width (random
    weights from a seed), 4 requests with top-k sampling; the K4 launch
    count must be 6 per sampled token.  Then the reduced config on the card
    against the same weights on the CPU;
-5. the ``kernels`` line, the card line and the result line.
+6. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -38,8 +45,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 M, TILE, LEAF = 32768, 512, 32  # tinyllama's vocab 32000 pads to 32768
 WIDTHS = tuple(1 << e for e in range(9, 15))  # the 6 wide rounds: 512 ... 16384
-K4_SOURCE = "src/repro_torch/kernels/csrc/sort_round_kv.cu"
-K4_REPLACES = "src/repro/kernels/merge_path.py:962"
+CSRC = "src/repro_torch/kernels/csrc"
+REPLACES = "src/repro/kernels/merge_path.py"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -66,11 +73,12 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def round_bound(m: int, key_bytes: int) -> dict:
-    """Least time of one round: the m data keys and values read once and all
-    m + T written once (the tail block writes constants and reads nothing),
-    against the few comparisons per data element of the in-tile searches."""
-    nbytes = (2 * m + TILE) * (key_bytes + 4)
+def round_bound(m: int, key_bytes: int, values: bool = True) -> dict:
+    """Least time of one round: the m data keys (and values) read once and
+    all m + T written once (the tail block writes constants and reads
+    nothing), against the few comparisons per data element of the in-tile
+    searches."""
+    nbytes = (2 * m + TILE) * (key_bytes + (4 if values else 0))
     ops = m * (math.log2(LEAF) + 2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
     return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -186,12 +194,265 @@ def phase_k4(gen) -> dict:
     }
 
 
+def bit_err(got, want, what: str) -> int:
+    """Max abs difference of the bit patterns of two results; raises unless 0."""
+    import torch
+
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+        got, want = got.view(ints), want.view(ints)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(err == 0, f"{what}: kernel differs from its plain version (max abs err of the bits {err})")
+    return err
+
+
+def sorted_side(kind: str, n: int, dtype, gen, device: str):
+    """One sorted input of a merge.  ``random``: spread-out keys; ``dups``:
+    7 distinct keys; ``all_equal``: one key; ``sentinel``: the dtype's
+    lowest key first and keys equal to the sentinel (``+inf``,
+    ``iinfo.max``) at the end; ``signed_zeros`` (floats): -0.0 and +0.0
+    at random in a long run of zeros, and +-inf at the ends."""
+    import torch
+
+    floating = dtype.is_floating_point
+    hi = math.inf if floating else torch.iinfo(dtype).max
+    lo = -math.inf if floating else torch.iinfo(dtype).min
+    if kind == "random" and floating:
+        x = torch.randn(n, generator=gen, device=device) * 1000
+    elif kind == "random":
+        x = torch.randint(lo // 2, hi // 2, (n,), generator=gen, device=device, dtype=torch.int64)
+    elif kind in ("dups", "signed_zeros"):
+        x = torch.randint(-3, 4, (n,), generator=gen, device=device)
+    elif kind == "all_equal":
+        x = torch.full((n,), 7, device=device)
+    elif kind == "sentinel":
+        x = torch.randint(-1000, 1000, (n,), generator=gen, device=device)
+    else:
+        raise ValueError(kind)
+    x = torch.sort(x.to(dtype)).values
+    if kind == "signed_zeros":  # sorted under `<`, where -0.0 == +0.0
+        signs = torch.rand(n, generator=gen, device=device) < 0.5
+        x = torch.where((x == 0) & signs, torch.tensor(-0.0, dtype=dtype, device=device), x)
+    if kind in ("sentinel", "signed_zeros"):
+        x[: n // 20] = lo
+        x[n - (2 * n // 5 if kind == "sentinel" else n // 20):] = hi
+    return x.contiguous()
+
+
+def merge_bound(n: int, bytes_per_element: int) -> dict:
+    """Least time of a merge of n elements in all: each input byte read once
+    and each output byte written once, against a few comparisons each."""
+    t_bytes = 2 * n * bytes_per_element / HBM_BYTES_PER_S * 1e3
+    t_ops = n * (math.log2(LEAF) + 2) / SCALAR_OPS_PER_S * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def wide_rounds(n: int, tile: int) -> int:
+    """K3/K4 launches of one sort of rows of n: widths tile ... m / 2."""
+    m = 1 << max(0, (n - 1).bit_length())
+    return max(0, m.bit_length() - tile.bit_length())
+
+
+def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), tile: int = TILE,
+                     leaf: int = LEAF, seed: int = 1) -> dict:
+    """K1, K2 and K3 on the merge-and-sort path at ``2 x 2^log2n`` elements.
+
+    Every merge and every round is held against the kernel's plain version
+    bit for bit, the whole path is driven once through ``kernels.ops`` with
+    the launch counts set to 0 just before it, and on the card each kernel
+    is timed beside its plain version, its bound and one PyTorch call.
+    With ``device="cpu"`` (the tests, at a small size) the wrappers run
+    their plain versions, nothing is launched or timed, and every check
+    still runs.
+    """
+    import torch
+
+    from repro_torch.core.merge_path import max_sentinel
+    from repro_torch.kernels import merge_path as km
+    from repro_torch.kernels import ops
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n1 = 1 << log2n
+    errs = {"merge": 0, "merge_kv": 0, "sort_round": 0}
+    cases = dict.fromkeys(errs, 0)
+
+    def launched(fn, call, n_launches):
+        """Run ``call``; check that it launched ``fn`` n_launches times (none off the card)."""
+        before = fn.launches
+        out = call()
+        want = n_launches if on_card else 0
+        check(fn.launches - before == want, f"{fn.__name__}: {fn.launches - before} launches, want {want}")
+        return out
+
+    # K1: every family of every key dtype, then the edge shapes
+    merge_cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        kinds = ["random", "dups", "all_equal", "sentinel"] + (["signed_zeros"] if dtype.is_floating_point else [])
+        merge_cases += [(dtype, kind, n1, n1) for kind in kinds]
+    merge_cases += [
+        (torch.float32, "random", n1 + n1 // 2 - 1, n1),  # unequal lengths
+        (torch.float32, "signed_zeros", 0, n1),  # one empty side
+        (torch.int32, "sentinel", n1, 0),
+        (torch.float32, "signed_zeros", tile // 4, tile // 2),  # n <= tile: the core path, no launch
+    ]
+    for dtype, kind, na, nb in merge_cases:
+        a, b = sorted_side(kind, na, dtype, gen, device), sorted_side(kind, nb, dtype, gen, device)
+        got = launched(km.merge, lambda: ops.merge(a, b, tile=tile, leaf=leaf), int(na + nb > tile))
+        what = f"merge {dtype} {kind} ({na}, {nb})"
+        errs["merge"] = max(errs["merge"], bit_err(got, km.merge_ref(a, b), what))
+        cases["merge"] += 1
+
+    # K2: arange values, so that every value names its source slot (float32
+    # values carry the same bits: floats past 2^24 would not be distinct)
+    kv_cases = [(torch.int32, kind, n1, n1) for kind in ("random", "dups", "all_equal", "sentinel")]
+    kv_cases += [(torch.float32, "signed_zeros", n1, n1), (torch.int32, "random", n1 + n1 // 2 - 1, n1),
+                 (torch.int32, "dups", 0, n1), (torch.int32, "random", tile // 4, tile // 2)]
+    for dtype, kind, na, nb in kv_cases:
+        ak, bk = sorted_side(kind, na, dtype, gen, device), sorted_side(kind, nb, dtype, gen, device)
+        vals = torch.arange(na + nb, dtype=torch.int32, device=device)
+        src = vals.view(torch.float32) if dtype.is_floating_point else vals
+        av, bv = src[:na], src[na:]
+        ko, vo = launched(km.merge_kv, lambda: ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf), int(na + nb > tile))
+        wk, wv = km.merge_kv_ref(ak, av, bk, bv)
+        what = f"merge_kv {dtype} {kind} ({na}, {nb})"
+        errs["merge_kv"] = max(errs["merge_kv"], bit_err(ko, wk, what + " keys"), bit_err(vo, wv, what + " values"))
+        # sorted, stable and a permutation, whatever the plain version says
+        vo = vo.view(torch.int32)
+        check(bool((ko[1:] >= ko[:-1]).all()), f"{what}: keys not sorted")
+        check(bool((vo[1:] > vo[:-1])[ko[1:] == ko[:-1]].all()), f"{what}: equal keys out of source order")
+        check(torch.equal(torch.sort(vo).values, vals), f"{what}: values are not a permutation of the inputs")
+        cases["merge_kv"] += 1
+
+    # K3: every wide round of a 2^log2n sort, then whole sorts
+    def round_keys(keys, width):
+        runs = torch.sort(keys.view(-1, width), dim=1, stable=True).values.reshape(-1)
+        return torch.cat([runs, torch.full((tile,), max_sentinel(keys.dtype), dtype=keys.dtype, device=device)])
+
+    def shuffled(kind, dtype):
+        return sorted_side(kind, n1, dtype, gen, device)[torch.randperm(n1, generator=gen, device=device)]
+
+    widths = [tile << i for i in range(wide_rounds(n1, tile))]
+    for dtype, kind in ((torch.int32, "random"), (torch.int32, "sentinel"), (torch.int16, "dups")):
+        keys = shuffled(kind, dtype)
+        for w in widths:
+            xf = round_keys(keys, w)
+            got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=tile, leaf=leaf), 1)
+            what = f"sort_round {dtype} {kind} width {w}"
+            errs["sort_round"] = max(errs["sort_round"], bit_err(got, km.sort_round_ref(xf, w, tile=tile), what))
+            cases["sort_round"] += 1
+        got = launched(km.sort_round, lambda: ops.sort(keys, tile=tile, leaf=leaf), len(widths))
+        bit_err(got, torch.sort(keys, stable=True).values, f"ops.sort {dtype} {kind} 2^{log2n}")
+    rows = torch.randint(-(2**31), 2**31 - 1, batch, generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    got = launched(km.sort_round, lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), wide_rounds(batch[1], tile))
+    bit_err(got, torch.sort(rows, dim=1, stable=True).values, f"ops.sort_batched {tuple(batch)}")
+
+    # the result must not depend on (T, S): other tiles and leaves, odd lengths
+    for t, s in ((32, 1), (128, 8), (384, 24), (1000, 32), (4096, 64)):
+        for dtype in (torch.int16, torch.bfloat16, torch.float32):
+            kind = "signed_zeros" if dtype.is_floating_point else "sentinel"
+            a, b = sorted_side("dups", n1 // 4 + 123, dtype, gen, device), sorted_side(kind, n1 // 8 + 7, dtype, gen, device)
+            got = launched(km.merge, lambda: km.merge(a, b, tile=t, leaf=s), 1)
+            errs["merge"] = max(errs["merge"], bit_err(got, km.merge_ref(a, b), f"merge {dtype} tile {t} leaf {s}"))
+            cases["merge"] += 1
+        ak, bk = sorted_side("dups", n1 // 8 + 5, torch.int32, gen, device), sorted_side("dups", n1 // 4, torch.int32, gen, device)
+        vals = torch.arange(ak.shape[0] + bk.shape[0], dtype=torch.int32, device=device).view(torch.float32)
+        av, bv = vals[: ak.shape[0]], vals[ak.shape[0]:]
+        got = launched(km.merge_kv, lambda: km.merge_kv(ak, av, bk, bv, tile=t, leaf=s), 1)
+        for g, w, part in zip(got, km.merge_kv_ref(ak, av, bk, bv), ("keys", "values")):
+            errs["merge_kv"] = max(errs["merge_kv"], bit_err(g, w, f"merge_kv tile {t} leaf {s} {part}"))
+        cases["merge_kv"] += 1
+        if t & (t - 1):
+            continue  # the flat rounds take power-of-two tiles only
+        keys = shuffled("dups", torch.int32)
+        for w in sorted({max(1, t // 2), n1 // 4}):
+            if t <= 2 * w <= n1:
+                xf = torch.cat([round_keys(keys, w)[:n1], torch.full((t,), max_sentinel(torch.int32), dtype=torch.int32, device=device)])
+                got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=t, leaf=s), 1)
+                errs["sort_round"] = max(errs["sort_round"], bit_err(got, km.sort_round_ref(xf, w, tile=t),
+                                                                      f"sort_round tile {t} leaf {s} width {w}"))
+                cases["sort_round"] += 1
+
+    # the path, driven once through the public surface with every count at 0
+    a, b = (sorted_side("random", n1, torch.float32, gen, device) for _ in range(2))
+    ak, bk = (sorted_side("random", n1, torch.int32, gen, device) for _ in range(2))
+    av = torch.arange(n1, dtype=torch.int32, device=device)
+    bv = torch.arange(n1, 2 * n1, dtype=torch.int32, device=device)
+    keys = shuffled("random", torch.int32)
+    km.reset_launches()
+    merged = ops.merge(a, b, tile=tile, leaf=leaf)
+    mk, mv = ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf)
+    sorted_keys = ops.sort(keys, tile=tile, leaf=leaf)
+    sorted_rows = ops.sort_batched(rows, tile=tile, leaf=leaf)
+    launches = {fn.__name__: fn.launches for fn in km.WRAPPERS}
+    want = {"merge": 1, "merge_kv": 1, "sort_round": len(widths) + wide_rounds(batch[1], tile), "sort_round_kv": 0}
+    check(launches == (want if on_card else dict.fromkeys(want, 0)), f"path launched {launches}, want {want}")
+    bit_err(merged, km.merge_ref(a, b), "path: ops.merge")
+    for g, w, part in zip((mk, mv), km.merge_kv_ref(ak, av, bk, bv), ("keys", "values")):
+        bit_err(g, w, f"path: ops.merge_kv {part}")
+    bit_err(sorted_keys, torch.sort(keys, stable=True).values, "path: ops.sort")
+    bit_err(sorted_rows, torch.sort(rows, dim=1, stable=True).values, "path: ops.sort_batched")
+    print(f"merge/sort: {cases['merge']} K1 merges, {cases['merge_kv']} K2 merges and {cases['sort_round']} K3 rounds "
+          f"against their plain versions at 2^{log2n} per side, tolerance 0 (bit-identical), max abs err "
+          f"{max(errs.values())}; the path launched {launches}")
+
+    out = {name: {"launches": launches[name], "max_abs_err": errs[name], "ms": None, "plain_ms": None,
+                  "library_ms": None, "bound_ms": None, "bound_by": None} for name in errs}
+    if not on_card:
+        return out
+
+    # times at the path's own shapes (CUDA events, after a warm-up call)
+    cat = torch.cat([a, b])
+    bound = merge_bound(2 * n1, 4)
+    out["merge"].update(ms=time_ms(lambda: km.merge(a, b, tile=tile, leaf=leaf)),
+                        plain_ms=time_ms(lambda: km.merge_ref(a, b)),
+                        library_ms=time_ms(lambda: torch.sort(cat, stable=True)),
+                        bound_ms=bound["ms"], bound_by=bound["by"])
+    cat_k, cat_v = torch.cat([ak, bk]), torch.cat([av, bv])
+    bound = merge_bound(2 * n1, 8)
+    out["merge_kv"].update(ms=time_ms(lambda: km.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf)),
+                           plain_ms=time_ms(lambda: km.merge_kv_ref(ak, av, bk, bv)),
+                           library_ms=time_ms(lambda: cat_v[torch.sort(cat_k, stable=True).indices]),
+                           bound_ms=bound["ms"], bound_by=bound["by"])
+    for name in ("merge", "merge_kv"):
+        r = out[name]
+        print(f"  {name:8s} 2 x 2^{log2n}: kernel_ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
+              f"library_ms {r['library_ms']:.5f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    rounds = []
+    for w in widths:
+        xf = round_keys(keys, w)
+        pairs = xf[:n1].view(-1, 2 * w)
+        rounds.append({"width": w, "ms": time_ms(lambda: km.sort_round(xf, w, tile=tile, leaf=leaf)),
+                       "plain_ms": time_ms(lambda: km.sort_round_ref(xf, w, tile=tile)),
+                       "library_ms": time_ms(lambda: torch.sort(pairs, dim=1, stable=True)),
+                       "bound": round_bound(n1, 4, values=False)})
+        r = rounds[-1]
+        print(f"  K3 int32 width {w:8d}: kernel_ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
+              f"library_ms {r['library_ms']:.5f}  bound_ms {r['bound']['ms']:.6f} ({r['bound']['by']})")
+    out["sort_round"].update(
+        ms=sum(r["ms"] for r in rounds), plain_ms=sum(r["plain_ms"] for r in rounds),
+        library_ms=sum(r["library_ms"] for r in rounds), bound_ms=sum(r["bound"]["ms"] for r in rounds),
+        bound_by=rounds[0]["bound"]["by"])
+    # the public calls whole, narrow rounds and host dispatch included
+    whole = {
+        "ops.merge": time_ms(lambda: ops.merge(a, b, tile=tile, leaf=leaf)),
+        "ops.merge_kv": time_ms(lambda: ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf)),
+        f"ops.sort 2^{log2n}": time_ms(lambda: ops.sort(keys, tile=tile, leaf=leaf), iters=5),
+        f"ops.sort_batched {tuple(batch)}": time_ms(lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), iters=5),
+    }
+    print("  whole calls (CUDA events): " + ", ".join(f"{k} {v:.5f} ms" for k, v in whole.items()))
+    return out
+
+
 def phase_serving() -> dict:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.merge_path import sort_round_kv
+    from repro_torch.kernels.merge_path import reset_launches, sort_round_kv
     from repro_torch.models import forward_decode, init_caches, init_params
     from repro_torch.serving import Request, ServingEngine, topk_sample
 
@@ -207,7 +468,7 @@ def phase_serving() -> dict:
     for uid in range(4):
         prompt = rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 12))).astype(np.int32)
         engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=8, temperature=0.8, topk=40))
-    sort_round_kv.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = engine.run_until_done()
@@ -294,22 +555,44 @@ def main() -> int:
     print(f"card: {card}")
 
     t0 = time.perf_counter()
-    lib = _build.build("sort_round_kv")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    built = _build.build_all()
+    print(f"build: {len(built)} sources in {time.perf_counter() - t0:.2f} s, one nvcc each, all started together")
+    for name, b in built.items():
+        print(f"build: {name}.cu -> {b.path.name} in {b.seconds:.2f} s")
+        kernel, spills = "?", ""
+        for line in b.ptxas.splitlines():  # ptxas -v: name, then spills, then registers
+            if "Function properties for" in line:
+                kernel = line.split(" for ", 1)[1].strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line:
+                print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k4 = phase_k4(gen)
+    merge_sort = phase_merge_sort()
     serving = phase_serving()
     phase_reference()
 
-    kernels = [{
-        "name": "sort_round_kv", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
-        "launches": serving["launches"], "max_abs_err": k4["max_abs_err"],
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
-    }]
-    print("times: ms, plain_ms, library_ms and bound_ms of K4 are the sums over the 6 wide rounds of one sampled token")
+    def entry(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
+                "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    kernels = [
+        entry("sort_round_kv", "sort_round_kv.cu", 962, serving["launches"], k4),
+        entry("merge", "merge.cu", 377, merge_sort["merge"]["launches"], merge_sort["merge"]),
+        entry("merge_kv", "merge.cu", 395, merge_sort["merge_kv"]["launches"], merge_sort["merge_kv"]),
+        entry("sort_round", "sort_round.cu", 924, merge_sort["sort_round"]["launches"], merge_sort["sort_round"]),
+    ]
+    print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
+          "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
+          "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
+          "concatenation (merge_kv: and the gather of the values); sort_round's are sums over the 15 wide rounds "
+          "of one ops.sort of 2^24 int32 keys, library_ms the stable torch.sort of each round's pair view; the "
+          "launches of merge, merge_kv and sort_round are those of one ops.merge, ops.merge_kv, ops.sort (2^24) "
+          "and ops.sort_batched (64, 65536)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

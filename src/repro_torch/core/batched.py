@@ -1,9 +1,9 @@
 """Batched Merge Path: the paper's partition over a leading batch axis.
 
 The PyTorch counterpart of the reference's ``repro.core.batched``, cut to
-what the dense serving path needs: Algorithm 2 over rows and over tile
-windows, the batched key-value merge that carries the sorts' narrow
-rounds, and the pure-PyTorch ("core") key-value sort and top-k.
+what the ported paths need: Algorithm 2 over rows and over tile windows,
+the batched merges (keys only and key-value) that carry the sorts' narrow
+rounds, and the pure-PyTorch ("core") sorts and top-k.
 
 Conventions match :mod:`repro_torch.core.merge_path`: rows sorted
 ascending, merges stable with A-priority.  Sentinel padding is used for
@@ -18,13 +18,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from .merge_path import bisect, bisect_steps, flip_desc, max_sentinel, total_order_keys
+from .merge_path import bisect, bisect_steps, flip_desc, max_sentinel, result_type, total_order_keys
 
 __all__ = [
     "searchsorted_batched",
     "diagonal_intersections_batched",
     "window_intersections",
+    "merge_batched",
     "merge_kv_batched",
+    "merge_sort_batched",
     "merge_sort_kv_batched",
     "stable_argsort_batched",
     "topk_batched",
@@ -106,6 +108,27 @@ def window_intersections(
     return bisect(lo, hi, bisect_steps(min(na, nb)), probe)
 
 
+def _batched_ranks(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-ranks (int64) of every element of every row pair, in one pass."""
+    dev = a.device
+    ia = torch.arange(a.shape[1], device=dev)[None, :] + searchsorted_batched(b, a, side="left")
+    ib = torch.arange(b.shape[1], device=dev)[None, :] + searchsorted_batched(a, b, side="right")
+    return ia, ib
+
+
+def merge_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stable merge of ``B`` pairs of sorted rows: ``(B, na) + (B, nb) -> (B, na + nb)``.
+
+    Row ``r`` is exactly ``merge(a[r], b[r])`` (stable, A-priority): every
+    element's output position is its cross-rank, found for all rows at once.
+    """
+    dtype = result_type(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    ia, ib = _batched_ranks(a, b)
+    out = torch.empty((a.shape[0], a.shape[1] + b.shape[1]), dtype=dtype, device=a.device)
+    return out.scatter_(1, ia, a).scatter_(1, ib, b)
+
+
 def merge_kv_batched(
     ak: torch.Tensor, av: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,14 +140,13 @@ def merge_kv_batched(
     """
     bsz, na = ak.shape
     nb = bk.shape[1]
-    kd = torch.promote_types(ak.dtype, bk.dtype)
-    vd = torch.promote_types(av.dtype, bv.dtype)
-    dev = ak.device
-    ia = torch.arange(na, device=dev)[None, :] + searchsorted_batched(bk, ak, side="left")
-    ib = torch.arange(nb, device=dev)[None, :] + searchsorted_batched(ak, bk, side="right")
-    keys = torch.empty((bsz, na + nb), dtype=kd, device=dev)
-    keys.scatter_(1, ia, ak.to(kd)).scatter_(1, ib, bk.to(kd))
-    vals = torch.empty((bsz, na + nb), dtype=vd, device=dev)
+    kd = result_type(ak.dtype, bk.dtype)
+    vd = result_type(av.dtype, bv.dtype)
+    ak, bk = ak.to(kd), bk.to(kd)
+    ia, ib = _batched_ranks(ak, bk)
+    keys = torch.empty((bsz, na + nb), dtype=kd, device=ak.device)
+    keys.scatter_(1, ia, ak).scatter_(1, ib, bk)
+    vals = torch.empty((bsz, na + nb), dtype=vd, device=ak.device)
     vals.scatter_(1, ia, av.to(vd)).scatter_(1, ib, bv.to(vd))
     return keys, vals
 
@@ -137,6 +159,30 @@ def _pad_rows_pow2(x: torch.Tensor, fill) -> torch.Tensor:
         return x
     pad = torch.full((x.shape[0], m - n), fill, dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=1)
+
+
+def merge_sort_batched(x: torch.Tensor) -> torch.Tensor:
+    """Sort every row of ``(B, n)`` ascending by batched Merge Path rounds.
+
+    Each of the ``log2 n`` rounds merges all runs of all rows in one
+    :func:`merge_batched` call.  Float rows compare their int
+    :func:`total_order_keys` (NaN last) and carry the floats as values, so
+    equal floats (``-0.0`` and ``+0.0`` among them) keep their input order.
+    """
+    bsz, n = x.shape
+    if n <= 1:
+        return x
+    if x.is_floating_point():
+        _, out = merge_sort_kv_batched(total_order_keys(x), x)
+        return out
+    xp = _pad_rows_pow2(x, max_sentinel(x.dtype))
+    m = xp.shape[1]
+    width = 1
+    while width < m:
+        runs = xp.reshape(-1, 2, width)
+        xp = merge_batched(runs[:, 0], runs[:, 1]).reshape(bsz, m)
+        width *= 2
+    return xp[:, :n]
 
 
 def merge_sort_kv_batched(keys: torch.Tensor, values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

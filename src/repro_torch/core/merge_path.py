@@ -1,6 +1,8 @@
-"""Merge Path (Green, Odeh & Birk 2014): key transforms and Algorithm 2.
+"""Merge Path (Green, Odeh & Birk 2014): key transforms, Algorithm 2, merges.
 
-The PyTorch counterpart of the reference's ``repro.core.merge_path``.
+The PyTorch counterpart of the reference's ``repro.core.merge_path``: the
+rank merges, the paper's Algorithm 1, and the merge sort and top-k built
+on them.
 Merging sorted arrays A and B is a monotone staircase path on the
 |A| x |B| grid; its intersection with cross diagonal ``d`` is found by a
 binary search of ``O(log min(|A|, |B|))`` steps (Theorem 14).
@@ -19,6 +21,7 @@ Conventions, as in the reference:
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -30,9 +33,44 @@ __all__ = [
     "bisect",
     "bisect_steps",
     "diagonal_intersections",
+    "result_type",
+    "merge",
+    "merge_kv",
+    "partitioned_merge",
+    "merge_sort",
+    "merge_sort_kv",
+    "stable_argsort",
+    "topk_desc",
+    "topk",
 ]
 
 _INT_OF_WIDTH = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+# The dtype of a merge of two different dtypes, as ``jnp.result_type`` gives
+# it for the dtypes the port takes (an int with a float gives the float).
+_PROMOTE = {
+    frozenset((torch.int16, torch.int32)): torch.int32,
+    frozenset((torch.int16, torch.bfloat16)): torch.bfloat16,
+    frozenset((torch.int32, torch.bfloat16)): torch.bfloat16,
+    frozenset((torch.int16, torch.float32)): torch.float32,
+    frozenset((torch.int32, torch.float32)): torch.float32,
+    frozenset((torch.bfloat16, torch.float32)): torch.float32,
+}
+
+
+def result_type(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The common dtype of a merge of ``a`` and ``b`` keys (or values).
+
+    Equal dtypes stay.  Two different dtypes among int16, int32, bfloat16
+    and float32 promote as JAX promotes them; any other pair raises, since
+    PyTorch's and JAX's promotion rules differ outside that table.
+    """
+    if a == b:
+        return a
+    out = _PROMOTE.get(frozenset((a, b)))
+    if out is None:
+        raise TypeError(f"no promotion rule for merging {a} with {b}; cast the operands to one dtype")
+    return out
 
 
 def max_sentinel(dtype: torch.dtype):
@@ -136,3 +174,104 @@ def diagonal_intersections(a: torch.Tensor, b: torch.Tensor, diags: torch.Tensor
     lo = torch.clamp(diags - nb, min=0)
     hi = torch.clamp(diags, max=na)
     return bisect(lo, hi, bisect_steps(min(na, nb)), probe)
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stable merge of two sorted 1-D arrays: the flat rank-based form.
+
+    Every element's output position is its cross-rank: ``rank(A[i]) = i +
+    |{j : B[j] < A[i]}|`` and ``rank(B[j]) = j + |{i : A[i] <= B[j]}|``,
+    the cross diagonal on which the Merge Path consumes it.  The
+    comparisons are the raw ``<`` and ``<=`` of the dtype, so ``-0.0`` and
+    ``+0.0`` tie and A's comes first.  The one-row case of
+    :func:`repro_torch.core.merge_batched`.
+    """
+    from .batched import merge_batched  # batched builds on this module
+
+    return merge_batched(a[None, :], b[None, :])[0]
+
+
+def merge_kv(
+    ak: torch.Tensor, av: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable key-value merge: returns the merged ``(keys, values)``.  The
+    one-row case of :func:`repro_torch.core.merge_kv_batched`."""
+    from .batched import merge_kv_batched  # batched builds on this module
+
+    keys, vals = merge_kv_batched(ak[None, :], av[None, :], bk[None, :], bv[None, :])
+    return keys[0], vals[0]
+
+
+def partitioned_merge(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    """Algorithm 1 of the paper: ``p`` independent segment merges.
+
+    The output is cut into ``p`` segments at equispaced cross diagonals;
+    each "core" finds its ``(a_start, b_start)`` by the diagonal binary
+    search and then runs the sequential two-pointer merge for
+    ``ceil(N / p)`` steps.  The ``p`` cores are the batch axis of one loop
+    over the segment length.  The last segment may be short: its diagonal
+    is clamped to ``N`` and the overrun trimmed.
+    """
+    na, nb = a.shape[0], b.shape[0]
+    n = na + nb
+    if p < 1:
+        raise ValueError(f"p must be >= 1, got {p}")
+    dtype = result_type(a.dtype, b.dtype)
+    if na == 0:
+        return b.to(dtype)
+    if nb == 0:
+        return a.to(dtype)
+    seg = -(-n // p)  # ceil-div: the last segment may be short
+    diags = torch.clamp(torch.arange(p, dtype=torch.int32, device=a.device) * seg, max=n)
+    ai = diagonal_intersections(a, b, diags).long()
+    bi = diags.long() - ai
+    a, b = a.to(dtype), b.to(dtype)
+    out = torch.empty((p, seg), dtype=dtype, device=a.device)
+    for s in range(seg):
+        av = a[torch.clamp(ai, max=na - 1)]
+        bv = b[torch.clamp(bi, max=nb - 1)]
+        take_a = (bi >= nb) | ((ai < na) & (av <= bv))
+        out[:, s] = torch.where(take_a, av, bv)
+        ai = ai + take_a
+        bi = bi + ~take_a
+    return out.reshape(-1)[:n]
+
+
+def merge_sort(x: torch.Tensor) -> torch.Tensor:
+    """Bottom-up merge sort from pairwise Merge Path merges: ``log2 N``
+    rounds, each one fused batched merge of all pairs of runs.  The
+    singleton-batch case of :func:`repro_torch.core.merge_sort_batched`."""
+    from .batched import merge_sort_batched  # batched builds on this module
+
+    if x.shape[0] <= 1:
+        return x
+    return merge_sort_batched(x[None, :])[0]
+
+
+def merge_sort_kv(keys: torch.Tensor, values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable bottom-up key-value merge sort (keys ascending)."""
+    from .batched import merge_sort_kv_batched  # batched builds on this module
+
+    if keys.shape[0] <= 1:
+        return keys, values
+    ks, vs = merge_sort_kv_batched(keys[None, :], values[None, :])
+    return ks[0], vs[0]
+
+
+def stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    """Stable argsort (ascending, int32) via the key-value merge sort."""
+    _, perm = merge_sort_kv(keys, torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device))
+    return perm
+
+
+def topk_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, int32 indices)`` of the ``k`` largest elements, descending
+    and stable: among equal values the smallest index wins."""
+    perm = stable_argsort(flip_desc(x))
+    top_idx = perm[:k]
+    return x[top_idx.long()], top_idx
+
+
+def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alias of :func:`topk_desc` (descending top-k)."""
+    return topk_desc(x, k)

@@ -1,4 +1,4 @@
-"""(tile, leaf) selection for the sort rounds.
+"""(tile, leaf) selection for the merges and the sort rounds.
 
 The reference picks from a table measured in Pallas interpret mode on a
 CPU, which says nothing about an H100, so the port does not carry it.
@@ -17,7 +17,10 @@ MIN_TILE = 128
 
 
 def pick(n: int) -> Tuple[int, int]:
-    """``(tile, leaf)`` for sorting rows of ``n`` elements; tiles are powers of two."""
+    """``(tile, leaf)`` for merging ``n`` elements in total, or for sorting
+    rows of ``n``; ``n`` need not be a power of two.  Tiles are powers of
+    two, as the flat sort rounds need; a merge with ``n <= tile`` takes the
+    core path and launches nothing."""
     cap = 1 << max(0, (max(1, n) - 1).bit_length())
     tile = min(DEFAULT_TILE, max(cap, MIN_TILE))
     return tile, min(DEFAULT_LEAF, tile)
