@@ -20,11 +20,20 @@ Phases (any failure raises, and the script exits non-zero):
    families; the whole path (``ops.merge``, ``ops.merge_kv``, ``ops.sort``,
    ``ops.sort_batched``) driven once with the launch counts read; CUDA-event
    times of each kernel, its plain version and one PyTorch call;
-5. serving: ``ServingEngine`` on tinyllama-1.1b at full width (random
+5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
+   K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
+   (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
+   last tile, a (T, S) sweep and the benchmark's small rows;
+   ``ops.merge_k`` (3 K7 rounds each) on k = 8 runs of 2^21, on the sample
+   sort's combine and on k = 5; the ragged top-k and the samplers' masked
+   vocab; the path driven once with the launch counts read; CUDA-event
+   times of each kernel, its plain version, one PyTorch call and the
+   whole ``ops`` call;
+6. serving: ``ServingEngine`` on tinyllama-1.1b at full width (random
    weights from a seed), 4 requests with top-k sampling; the K4 launch
    count must be 6 per sampled token.  Then the reduced config on the card
    against the same weights on the CPU;
-6. the ``kernels`` line, the card line and the result line.
+7. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -208,36 +217,38 @@ def bit_err(got, want, what: str) -> int:
     return err
 
 
-def sorted_side(kind: str, n: int, dtype, gen, device: str):
-    """One sorted input of a merge.  ``random``: spread-out keys; ``dups``:
-    7 distinct keys; ``all_equal``: one key; ``sentinel``: the dtype's
-    lowest key first and keys equal to the sentinel (``+inf``,
-    ``iinfo.max``) at the end; ``signed_zeros`` (floats): -0.0 and +0.0
-    at random in a long run of zeros, and +-inf at the ends."""
+def sorted_side(kind: str, n: int, dtype, gen, device: str, rows=None):
+    """One sorted input of a merge, ``(n,)``, or ``(rows, n)`` sorted rows.
+    ``random``: spread-out keys; ``dups``: 7 distinct keys; ``all_equal``:
+    one key; ``sentinel``: the dtype's lowest key first and keys equal to
+    the sentinel (``+inf``, ``iinfo.max``) at the end; ``signed_zeros``
+    (floats): -0.0 and +0.0 at random in a long run of zeros, and +-inf at
+    the ends."""
     import torch
 
+    shape = (n,) if rows is None else (rows, n)
     floating = dtype.is_floating_point
     hi = math.inf if floating else torch.iinfo(dtype).max
     lo = -math.inf if floating else torch.iinfo(dtype).min
     if kind == "random" and floating:
-        x = torch.randn(n, generator=gen, device=device) * 1000
+        x = torch.randn(shape, generator=gen, device=device) * 1000
     elif kind == "random":
-        x = torch.randint(lo // 2, hi // 2, (n,), generator=gen, device=device, dtype=torch.int64)
+        x = torch.randint(lo // 2, hi // 2, shape, generator=gen, device=device, dtype=torch.int64)
     elif kind in ("dups", "signed_zeros"):
-        x = torch.randint(-3, 4, (n,), generator=gen, device=device)
+        x = torch.randint(-3, 4, shape, generator=gen, device=device)
     elif kind == "all_equal":
-        x = torch.full((n,), 7, device=device)
+        x = torch.full(shape, 7, device=device)
     elif kind == "sentinel":
-        x = torch.randint(-1000, 1000, (n,), generator=gen, device=device)
+        x = torch.randint(-1000, 1000, shape, generator=gen, device=device)
     else:
         raise ValueError(kind)
     x = torch.sort(x.to(dtype)).values
     if kind == "signed_zeros":  # sorted under `<`, where -0.0 == +0.0
-        signs = torch.rand(n, generator=gen, device=device) < 0.5
+        signs = torch.rand(shape, generator=gen, device=device) < 0.5
         x = torch.where((x == 0) & signs, torch.tensor(-0.0, dtype=dtype, device=device), x)
     if kind in ("sentinel", "signed_zeros"):
-        x[: n // 20] = lo
-        x[n - (2 * n // 5 if kind == "sentinel" else n // 20):] = hi
+        x[..., : n // 20] = lo
+        x[..., n - (2 * n // 5 if kind == "sentinel" else n // 20):] = hi
     return x.contiguous()
 
 
@@ -388,7 +399,8 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     sorted_keys = ops.sort(keys, tile=tile, leaf=leaf)
     sorted_rows = ops.sort_batched(rows, tile=tile, leaf=leaf)
     launches = {fn.__name__: fn.launches for fn in km.WRAPPERS}
-    want = {"merge": 1, "merge_kv": 1, "sort_round": len(widths) + wide_rounds(batch[1], tile), "sort_round_kv": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(merge=1, merge_kv=1, sort_round=len(widths) + wide_rounds(batch[1], tile))
     check(launches == (want if on_card else dict.fromkeys(want, 0)), f"path launched {launches}, want {want}")
     bit_err(merged, km.merge_ref(a, b), "path: ops.merge")
     for g, w, part in zip((mk, mv), km.merge_kv_ref(ak, av, bk, bv), ("keys", "values")):
@@ -444,6 +456,327 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         f"ops.sort_batched {tuple(batch)}": time_ms(lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), iters=5),
     }
     print("  whole calls (CUDA events): " + ", ".join(f"{k} {v:.5f} ms" for k, v in whole.items()))
+    return out
+
+
+def rows_bound(read: int, write: int, merged: int, bytes_per_element: int) -> dict:
+    """Least time of a batched merge: ``read`` input and ``write`` output
+    elements moved once, against a few comparisons per merged element."""
+    t_bytes = (read + write) * bytes_per_element / HBM_BYTES_PER_S * 1e3
+    t_ops = merged * (math.log2(LEAF) + 2) / SCALAR_OPS_PER_S * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ragged_lens(bsz: int, na: int, nb: int, gen, device: str):
+    """``(a_lens, b_lens)``, int32, uniform in ``[0, na]`` / ``[0, nb]`` from
+    the seed, the first rows the edge cases: 0/0, 0/full, full/0,
+    full/full, then lengths above the row and below 0 that must clamp."""
+    import torch
+
+    al = torch.randint(0, na + 1, (bsz,), generator=gen, device=device, dtype=torch.int64)
+    bl = torch.randint(0, nb + 1, (bsz,), generator=gen, device=device, dtype=torch.int64)
+    edges = [(0, 0), (0, nb), (na, 0), (na, nb), (na + 7, 3 * nb + 1), (-5, nb // 2)]
+    for r, (x, y) in enumerate(edges[:bsz]):
+        al[r], bl[r] = x, y
+    return al.to(torch.int32), bl.to(torch.int32)
+
+
+def junk_tails(x, lens, gen):
+    """``x`` with every slot at or past its row's length overwritten by
+    unsorted junk (NaN among it for floats): a kernel that read a tail
+    would show it."""
+    import torch
+
+    col = torch.arange(x.shape[1], device=x.device)[None, :]
+    junk = torch.randint(-10**6, 10**6, x.shape, generator=gen, device=x.device).to(x.dtype)
+    if x.dtype.is_floating_point:
+        junk[:, ::7] = math.nan
+    return torch.where(col < lens.clamp(min=0)[:, None], x, junk).contiguous()
+
+
+def masked(x, lens):
+    """``x`` with the slots past each (clamped) length set to the sentinel."""
+    import torch
+
+    from repro_torch.core.merge_path import max_sentinel
+
+    col = torch.arange(x.shape[1], device=x.device)[None, :]
+    return torch.where(col < lens.clamp(min=0)[:, None], x, torch.full((), max_sentinel(x.dtype), dtype=x.dtype, device=x.device))
+
+
+def sorted_merge_rows(ak, bk, al=None, bl=None, av=None, bv=None):
+    """The row merge by a stable row-wise ``torch.sort`` of ``a‖b``
+    (integer keys): pads, when lengths are given, sort after every valid
+    key (they are keyed past the int32 range) and come back as sentinel
+    keys and zero values."""
+    import torch
+
+    from repro_torch.core.merge_path import max_sentinel
+
+    keys = torch.cat([ak, bk], 1).long()
+    vals = None if av is None else torch.cat([av, bv], 1)
+    if al is not None:
+        col_a = torch.arange(ak.shape[1], device=ak.device)[None, :]
+        col_b = torch.arange(bk.shape[1], device=ak.device)[None, :]
+        valid = torch.cat([col_a < al.clamp(min=0)[:, None], col_b < bl.clamp(min=0)[:, None]], 1)
+        keys = torch.where(valid, keys, 1 << 40)
+    ks, perm = torch.sort(keys, dim=1, stable=True)
+    pad = ks == 1 << 40
+    ks = torch.where(pad, max_sentinel(ak.dtype), ks).to(ak.dtype)
+    if vals is None:
+        return ks
+    return ks, torch.where(pad, 0, torch.gather(vals, 1, perm))
+
+
+def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run: int = 21, vocab: int = 32000,
+                  tile: int = TILE, leaf: int = LEAF, seed: int = 2) -> dict:
+    """K5, K6, K7 and K8 on the batched, ragged and k-way merge path.
+
+    Wide rows ``(bsz, 2^log2n) + (bsz, 2^log2n)``; ragged lengths from the
+    seed with edge rows; a shape whose rows do not fill their last tile;
+    rows that fit one tile (the core path); a (T, S) sweep; the benchmark's
+    own small-row shapes; ``ops.merge_k`` on k = 8 runs of ``2^log2_run``,
+    on the sample sort's combine (an ``(8, 2^(log2_run + 1))`` stack with
+    lengths around ``2^(log2_run - 3)``) and on k = 5; the ragged top-k at
+    ``(4, vocab)`` and the samplers' masked vocab.  Every kernel call is
+    held against its plain version bit for bit; integer merges also
+    against a stable row-wise ``torch.sort``.  The path is driven once
+    through ``kernels.ops`` with every count at 0 just before it.  With
+    ``device="cpu"`` (the tests, at a small size) the wrappers run their
+    plain versions, nothing is launched or timed, and every check runs.
+    """
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core.merge_path import max_sentinel
+    from repro_torch.kernels import merge_path as km
+    from repro_torch.kernels import ops
+    from repro_torch.serving import topk_sample, topp_sample
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n1 = 1 << log2n
+    names = ("merge_batched", "merge_kv_batched", "merge_batched_ragged", "merge_kv_batched_ragged")
+    errs = dict.fromkeys(names, 0)
+    cases = dict.fromkeys(names, 0)
+    fns = {name: getattr(km, name) for name in names}
+    refs = {name: getattr(km, name + "_ref") for name in names}
+
+    def run(name, args, what, kw=None):
+        """One direct wrapper call (one launch on the card) against its plain version."""
+        fn = fns[name]
+        before = fn.launches
+        got = fn(*args, **(kw or {"tile": tile, "leaf": leaf}))
+        check(fn.launches - before == int(on_card), f"{what}: {fn.launches - before} launches")
+        want = refs[name](*args)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for part, g, w in zip(("keys", "values"), got, want):
+            errs[name] = max(errs[name], bit_err(g, w, f"{name} {what} {part}"))
+        cases[name] += 1
+        return got
+
+    def arange_values(bsz_, na, nb, floating):
+        vals = torch.arange(bsz_ * (na + nb), dtype=torch.int32, device=device).view(bsz_, na + nb)
+        vals = vals.view(torch.float32) if floating else vals
+        return vals[:, :na].contiguous(), vals[:, na:].contiguous()
+
+    def merge_cases(na, nb, families, rows=bsz, kw=None):
+        """K5 and K7 over ``families`` of (dtype, kind); K6 and K8 over the
+        int32 and float32 ones, with values that name their source slot."""
+        for dtype, kind in families:
+            a = sorted_side(kind, na, dtype, gen, device, rows)
+            b = sorted_side(kind, nb, dtype, gen, device, rows)
+            al, bl = ragged_lens(rows, na, nb, gen, device)
+            aj, bj = junk_tails(a, al, gen), junk_tails(b, bl, gen)
+            what = f"{dtype} {kind} ({rows}, {na}+{nb})"
+            got = run("merge_batched", (a, b), what, kw)[0]
+            got_r = run("merge_batched_ragged", (aj, bj, al, bl), what, kw)[0]
+            if not dtype.is_floating_point:
+                bit_err(got, sorted_merge_rows(a, b), f"merge_batched {what} vs torch.sort")
+                bit_err(got_r, sorted_merge_rows(aj, bj, al, bl), f"merge_batched_ragged {what} vs torch.sort")
+            if dtype not in (torch.int32, torch.float32):
+                continue
+            av, bv = arange_values(rows, na, nb, dtype.is_floating_point)
+            ko, vo = run("merge_kv_batched", (a, av, b, bv), what, kw)
+            kr, vr = run("merge_kv_batched_ragged", (aj, av, bj, bv, al, bl), what, kw)
+            if not dtype.is_floating_point:
+                for g, w, part in zip((ko, vo, kr, vr), (*sorted_merge_rows(a, b, None, None, av, bv),
+                                                         *sorted_merge_rows(aj, bj, al, bl, av, bv)),
+                                      ("kv keys", "kv values", "ragged kv keys", "ragged kv values")):
+                    bit_err(g, w, f"{what} {part} vs torch.sort")
+
+    # wide rows: every key dtype, adversarial families; then a short last tile
+    merge_cases(n1, n1, [(torch.float32, "random"), (torch.float32, "signed_zeros"), (torch.float32, "sentinel"),
+                         (torch.bfloat16, "dups"), (torch.bfloat16, "signed_zeros"),
+                         (torch.int32, "random"), (torch.int32, "sentinel"), (torch.int32, "all_equal"),
+                         (torch.int16, "dups"), (torch.int16, "sentinel")])
+    merge_cases(n1 - 1, n1 + 3, [(torch.float32, "sentinel"), (torch.int32, "dups")])
+    # the result must not depend on (T, S)
+    for t, s_ in ((32, 1), (128, 8), (384, 24), (1000, 32), (4096, 64)):
+        merge_cases(n1 // 8 + 123, n1 // 16 + 7, [(torch.int32, "dups"), (torch.bfloat16, "signed_zeros")],
+                    rows=8, kw={"tile": t, "leaf": s_})
+    # the benchmark's small rows: K5 at (64, 512 + 512), K7 at (64, 4096 + 4096)
+    small_a, small_b = (sorted_side("random", 512, torch.float32, gen, device, 64) for _ in range(2))
+    run("merge_batched", (small_a, small_b), "(64, 512+512)")
+    rag_a, rag_b = (sorted_side("random", 4096, torch.float32, gen, device, 64) for _ in range(2))
+    rag_al, rag_bl = (torch.randint(0, 4097, (64,), generator=gen, device=device).to(torch.int32) for _ in range(2))
+    run("merge_batched_ragged", (rag_a, rag_b, rag_al, rag_bl), "(64, 4096+4096)")
+
+    # the k-way merges: k = 8 full runs; the sample sort's combine; k = 5
+    nr = 1 << log2_run
+    full_runs = sorted_side("random", nr, torch.int32, gen, device, 8)
+    cap = 2 * nr
+    share = nr // 8
+    comb_lens = torch.randint(share - share // 4, share + share // 4 + 1, (8,), generator=gen, device=device).to(torch.int32)
+    comb_runs = masked(sorted_side("dups", cap, torch.int32, gen, device, 8), comb_lens)
+    five_runs = sorted_side("sentinel", nr // 4, torch.int32, gen, device, 5)
+    five_lens = torch.randint(0, nr // 4 + 1, (5,), generator=gen, device=device).to(torch.int32)
+    five_runs = junk_tails(five_runs, five_lens, gen)
+    kway = [("k=8 full", full_runs, None), ("combine", comb_runs, comb_lens), ("k=5", five_runs, five_lens)]
+
+    # the ragged top-k and the samplers' masked vocab
+    logits = torch.randn((4, vocab), generator=gen, device=device) * 3
+    vocab_lens = torch.tensor([vocab, vocab - 1, 40, 7], dtype=torch.int32, device=device)
+
+    # the path, driven once through kernels.ops with every count at 0
+    wa, wb = (sorted_side("random", n1, torch.float32, gen, device, bsz) for _ in range(2))
+    wak, wbk = (sorted_side("random", n1, torch.int32, gen, device, bsz) for _ in range(2))
+    wav, wbv = arange_values(bsz, n1, n1, False)
+    wal, wbl = ragged_lens(bsz, n1, n1, gen, device)
+    waj, wbj = junk_tails(wa, wal, gen), junk_tails(wb, wbl, gen)
+    wakj, wbkj = junk_tails(wak, wal, gen), junk_tails(wbk, wbl, gen)
+    core_a, core_b = sorted_side("dups", tile // 4, torch.float32, gen, device, bsz), sorted_side("dups", tile // 2, torch.float32, gen, device, bsz)
+    core_al, core_bl = ragged_lens(bsz, tile // 4, tile // 2, gen, device)
+    km.reset_launches()
+    path = {
+        "merge_batched": ops.merge_batched(wa, wb, tile=tile, leaf=leaf),
+        "merge_kv_batched": ops.merge_kv_batched(wak, wav, wbk, wbv, tile=tile, leaf=leaf),
+        "merge_batched_ragged": ops.merge_batched_ragged(waj, wbj, wal, wbl, tile=tile, leaf=leaf),
+        "merge_kv_batched_ragged": ops.merge_kv_batched_ragged(wakj, wav, wbkj, wbv, wal, wbl, tile=tile, leaf=leaf),
+        "core merge_batched": ops.merge_batched(core_a, core_b, tile=tile, leaf=leaf),
+        "core merge_batched_ragged": ops.merge_batched_ragged(core_a, core_b, core_al, core_bl, tile=tile, leaf=leaf),
+        "topk_batched_ragged": ops.topk_batched_ragged(logits, 40, vocab_lens, tile=tile, leaf=leaf),
+    }
+    for what, runs, lens in kway:
+        path[f"merge_k {what}"] = ops.merge_k(runs, lens, tile=tile, leaf=leaf)
+    launches = {fn.__name__: fn.launches for fn in km.WRAPPERS}
+    rounds = sum(max(0, (r.shape[0] - 1).bit_length()) for _, r, _ in kway)
+    want = dict.fromkeys(launches, 0)
+    want.update(merge_batched=1, merge_kv_batched=1, merge_batched_ragged=1 + rounds, merge_kv_batched_ragged=1,
+                sort_round_kv=wide_rounds(vocab, tile))
+    check(launches == (want if on_card else dict.fromkeys(want, 0)), f"batched path launched {launches}, want {want}")
+
+    # what the path returned, against the plain versions and torch.sort
+    errs["merge_batched"] = max(errs["merge_batched"], bit_err(path["merge_batched"], km.merge_batched_ref(wa, wb), "path: merge_batched"))
+    for g, w, part in zip(path["merge_kv_batched"], km.merge_kv_batched_ref(wak, wav, wbk, wbv), ("keys", "values")):
+        errs["merge_kv_batched"] = max(errs["merge_kv_batched"], bit_err(g, w, f"path: merge_kv_batched {part}"))
+    errs["merge_batched_ragged"] = max(errs["merge_batched_ragged"], bit_err(
+        path["merge_batched_ragged"], km.merge_batched_ragged_ref(waj, wbj, wal, wbl), "path: merge_batched_ragged"))
+    for g, w, part in zip(path["merge_kv_batched_ragged"], km.merge_kv_batched_ragged_ref(wakj, wav, wbkj, wbv, wal, wbl),
+                          ("keys", "values")):
+        errs["merge_kv_batched_ragged"] = max(errs["merge_kv_batched_ragged"], bit_err(g, w, f"path: merge_kv_batched_ragged {part}"))
+    for g, w, part in zip(path["merge_kv_batched"], sorted_merge_rows(wak, wbk, None, None, wav, wbv), ("keys", "values")):
+        bit_err(g, w, f"path: merge_kv_batched {part} vs torch.sort")
+    for g, w, part in zip(path["merge_kv_batched_ragged"], sorted_merge_rows(wakj, wbkj, wal, wbl, wav, wbv), ("keys", "values")):
+        bit_err(g, w, f"path: merge_kv_batched_ragged {part} vs torch.sort")
+    bit_err(path["core merge_batched"], core.merge_batched(core_a, core_b), "path: core-path merge_batched")
+    bit_err(path["core merge_batched_ragged"], core.merge_batched_ragged(core_a, core_b, core_al, core_bl),
+            "path: core-path merge_batched_ragged")
+    for what, runs, lens in kway:
+        got = path[f"merge_k {what}"]
+        bit_err(got, core.merge_k(runs, lens), f"path: merge_k {what} against the core tournament")
+        lens_ = torch.full((runs.shape[0],), runs.shape[1], device=device) if lens is None else lens.clamp(0, runs.shape[1])
+        valid = torch.cat([runs[i, : int(lens_[i])] for i in range(runs.shape[0])])
+        total = valid.shape[0]
+        check(got.shape == (runs.numel(),), f"merge_k {what}: shape {tuple(got.shape)}")
+        bit_err(got[:total], torch.sort(valid, stable=True).values, f"path: merge_k {what} prefix vs torch.sort")
+        check(bool((got[total:] == max_sentinel(runs.dtype)).all()), f"merge_k {what}: tail not sentinel")
+    for g, w, part in zip(path["topk_batched_ragged"], core.topk_batched_ragged(logits, 40, vocab_lens), ("values", "indices")):
+        bit_err(g, w, f"path: topk_batched_ragged {part} against the core")
+    idx = path["topk_batched_ragged"][1]
+    check(bool((idx[2:, :] < vocab_lens[2:, None]).all()) and bool((idx[3, 7:] == -1).all()), "ragged top-k: a masked id")
+
+    # the samplers' masked vocab on the kernel backend: no id reaches vocab_lens[r]
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    many = logits.repeat(64, 1)
+    many_lens = vocab_lens.repeat(64)
+    for sampler in (lambda: topk_sample(many, sgen, k=40, temperature=0.8, vocab_lens=many_lens, backend="kernel", tile=tile, leaf=leaf),
+                    lambda: topp_sample(many, sgen, p=0.9, k_max=128, vocab_lens=many_lens, backend="kernel", tile=tile, leaf=leaf)):
+        ids = sampler()
+        check(bool(((ids >= 0) & (ids < many_lens)).all()), f"sampler drew an id past vocab_lens: {ids[:8].tolist()}")
+
+    print(f"batched: {cases['merge_batched']} K5, {cases['merge_kv_batched']} K6, {cases['merge_batched_ragged']} K7 and "
+          f"{cases['merge_kv_batched_ragged']} K8 calls against their plain versions (rows of 2^{log2n} per side and "
+          f"the edge shapes), tolerance 0 (bit-identical), max abs err {max(errs.values())}; the path launched {launches}")
+
+    out = {name: {"launches": launches[name], "max_abs_err": errs[name], "ms": None, "plain_ms": None,
+                  "library_ms": None, "bound_ms": None, "bound_by": None} for name in names}
+    if not on_card:
+        return out
+
+    # times at the wide rows (CUDA events, after a warm-up call)
+    n_all = bsz * 2 * n1
+    valid = int(wal.clamp(0, n1).sum() + wbl.clamp(0, n1).sum())
+    cat_f = torch.cat([wa, wb], 1)
+    cat_k, cat_v = torch.cat([wak, wbk], 1), torch.cat([wav, wbv], 1)
+    cat_fm = torch.cat([masked(waj, wal), masked(wbj, wbl)], 1)
+    cat_km = torch.cat([masked(wakj, wal), masked(wbkj, wbl)], 1)
+    timed = {
+        "merge_batched": (lambda: km.merge_batched(wa, wb, tile=tile, leaf=leaf),
+                          lambda: km.merge_batched_ref(wa, wb),
+                          lambda: torch.sort(cat_f, dim=1, stable=True),
+                          lambda: ops.merge_batched(wa, wb, tile=tile, leaf=leaf),
+                          rows_bound(n_all, n_all, n_all, 4)),
+        "merge_kv_batched": (lambda: km.merge_kv_batched(wak, wav, wbk, wbv, tile=tile, leaf=leaf),
+                             lambda: km.merge_kv_batched_ref(wak, wav, wbk, wbv),
+                             lambda: torch.gather(cat_v, 1, torch.sort(cat_k, dim=1, stable=True).indices),
+                             lambda: ops.merge_kv_batched(wak, wav, wbk, wbv, tile=tile, leaf=leaf),
+                             rows_bound(n_all, n_all, n_all, 8)),
+        "merge_batched_ragged": (lambda: km.merge_batched_ragged(waj, wbj, wal, wbl, tile=tile, leaf=leaf),
+                                 lambda: km.merge_batched_ragged_ref(waj, wbj, wal, wbl),
+                                 lambda: torch.sort(cat_fm, dim=1, stable=True),
+                                 lambda: ops.merge_batched_ragged(waj, wbj, wal, wbl, tile=tile, leaf=leaf),
+                                 rows_bound(valid, n_all, valid, 4)),
+        "merge_kv_batched_ragged": (lambda: km.merge_kv_batched_ragged(wakj, wav, wbkj, wbv, wal, wbl, tile=tile, leaf=leaf),
+                                    lambda: km.merge_kv_batched_ragged_ref(wakj, wav, wbkj, wbv, wal, wbl),
+                                    lambda: torch.gather(cat_v, 1, torch.sort(cat_km, dim=1, stable=True).indices),
+                                    lambda: ops.merge_kv_batched_ragged(wakj, wav, wbkj, wbv, wal, wbl, tile=tile, leaf=leaf),
+                                    rows_bound(valid, n_all, valid, 8)),
+    }
+    for name, (kern, plain, library, whole, bound) in timed.items():
+        r = out[name]
+        r.update(ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library), bound_ms=bound["ms"],
+                 bound_by=bound["by"])
+        whole_ms = time_ms(whole)
+        print(f"  {name:24s} ({bsz}, 2^{log2n}+2^{log2n}): kernel_ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
+              f"library_ms {r['library_ms']:.5f}  ops_ms {whole_ms:.5f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    # per-launch latency at the benchmark's small rows
+    small_cat = torch.cat([small_a, small_b], 1)
+    rag_cat = torch.cat([masked(rag_a, rag_al), masked(rag_b, rag_bl)], 1)
+    rag_valid = int(rag_al.sum() + rag_bl.sum())
+    for what, kern, plain, library, bound in (
+        ("K5 (64, 512+512) float32", lambda: km.merge_batched(small_a, small_b, tile=tile, leaf=leaf),
+         lambda: km.merge_batched_ref(small_a, small_b), lambda: torch.sort(small_cat, dim=1, stable=True),
+         rows_bound(65536, 65536, 65536, 4)),
+        ("K7 (64, 4096+4096) float32", lambda: km.merge_batched_ragged(rag_a, rag_b, rag_al, rag_bl, tile=tile, leaf=leaf),
+         lambda: km.merge_batched_ragged_ref(rag_a, rag_b, rag_al, rag_bl), lambda: torch.sort(rag_cat, dim=1, stable=True),
+         rows_bound(rag_valid, 64 * 8192, rag_valid, 4)),
+    ):
+        print(f"  {what}: kernel_ms {time_ms(kern):.5f}  plain_ms {time_ms(plain):.5f}  "
+              f"library_ms {time_ms(library):.5f}  bound_ms {bound['ms']:.6f} ({bound['by']})")
+    # the k-way merges whole, against the core tournament and one sort of the valid keys
+    for what, runs, lens in kway:
+        lens_ = torch.full((runs.shape[0],), runs.shape[1], device=device) if lens is None else lens
+        valid_keys = torch.cat([runs[i, : int(lens_[i])] for i in range(runs.shape[0])])
+        print(f"  ops.merge_k {what} {tuple(runs.shape)}: ops_ms {time_ms(lambda: ops.merge_k(runs, lens, tile=tile, leaf=leaf), iters=5):.5f}  "
+              f"core_ms {time_ms(lambda: core.merge_k(runs, lens), iters=5):.5f}  "
+              f"library_ms {time_ms(lambda: torch.sort(valid_keys, stable=True), iters=5):.5f} "
+              f"({valid_keys.shape[0]} valid keys, {max(0, (runs.shape[0] - 1).bit_length())} K7 launches)")
+    print(f"  ops.topk_batched_ragged (4, {vocab}) k=40: ops_ms "
+          f"{time_ms(lambda: ops.topk_batched_ragged(logits, 40, vocab_lens, tile=tile, leaf=leaf)):.5f}  core_ms "
+          f"{time_ms(lambda: core.topk_batched_ragged(logits, 40, vocab_lens)):.5f}")
     return out
 
 
@@ -572,6 +905,7 @@ def main() -> int:
     gen.manual_seed(0)
     k4 = phase_k4(gen)
     merge_sort = phase_merge_sort()
+    batched = phase_batched()
     serving = phase_serving()
     phase_reference()
 
@@ -586,13 +920,20 @@ def main() -> int:
         entry("merge_kv", "merge.cu", 395, merge_sort["merge_kv"]["launches"], merge_sort["merge_kv"]),
         entry("sort_round", "sort_round.cu", 924, merge_sort["sort_round"]["launches"], merge_sort["sort_round"]),
     ]
+    kernels += [entry(name, "merge.cu", line, batched[name]["launches"], batched[name])
+                for name, line in (("merge_batched", 543), ("merge_kv_batched", 562),
+                                   ("merge_batched_ragged", 721), ("merge_kv_batched_ragged", 749))]
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
           "concatenation (merge_kv: and the gather of the values); sort_round's are sums over the 15 wide rounds "
           "of one ops.sort of 2^24 int32 keys, library_ms the stable torch.sort of each round's pair view; the "
           "launches of merge, merge_kv and sort_round are those of one ops.merge, ops.merge_kv, ops.sort (2^24) "
-          "and ops.sort_batched (64, 65536)")
+          "and ops.sort_batched (64, 65536); merge_batched's, merge_kv_batched's, merge_batched_ragged's and "
+          "merge_kv_batched_ragged's are one call at (64, 2^18) + (64, 2^18) (float32 keys; int32 keys and values; "
+          "the ragged ones with the lengths of the path's run), library_ms one stable row-wise torch.sort of a‖b "
+          "(the ragged ones: of the rows masked past their lengths; kv: and the gather of the values), their launches "
+          "those of the batched path's run (merge_batched_ragged: 1 direct call and 3 rounds of each of 3 ops.merge_k)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,15 @@ from .merge_path import (
     DEFAULT_LEAF,
     DEFAULT_TILE,
     merge,
+    merge_batched,
+    merge_batched_ragged,
+    merge_batched_ragged_ref,
+    merge_batched_ref,
     merge_kv,
+    merge_kv_batched,
+    merge_kv_batched_ragged,
+    merge_kv_batched_ragged_ref,
+    merge_kv_batched_ref,
     merge_kv_ref,
     merge_ref,
     reset_launches,
@@ -23,7 +31,15 @@ __all__ = [
     "DEFAULT_LEAF",
     "DEFAULT_TILE",
     "merge",
+    "merge_batched",
+    "merge_batched_ragged",
+    "merge_batched_ragged_ref",
+    "merge_batched_ref",
     "merge_kv",
+    "merge_kv_batched",
+    "merge_kv_batched_ragged",
+    "merge_kv_batched_ragged_ref",
+    "merge_kv_batched_ref",
     "merge_kv_ref",
     "merge_ref",
     "ops",

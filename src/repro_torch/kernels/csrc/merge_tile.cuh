@@ -49,17 +49,27 @@ __device__ __forceinline__ bool key_le<bf16>(bf16 x, bf16 y) {
          __uint_as_float(static_cast<uint32_t>(y.bits) << 16);
 }
 
-// The sentinel of the flat sort rounds' tail (integer keys only).
+// The sentinel that pads sorted data: the largest key of the type, +inf for
+// floats (the port's max_sentinel).  It fills the flat sort rounds' tail and
+// the slots of a ragged merge past each row's valid total.
 template <typename K>
-struct KeyMax;
+__device__ __forceinline__ K key_max();
 template <>
-struct KeyMax<int16_t> {
-  static constexpr int16_t value = INT16_MAX;
-};
+__device__ __forceinline__ int16_t key_max<int16_t>() {
+  return INT16_MAX;
+}
 template <>
-struct KeyMax<int32_t> {
-  static constexpr int32_t value = INT32_MAX;
-};
+__device__ __forceinline__ int32_t key_max<int32_t>() {
+  return INT32_MAX;
+}
+template <>
+__device__ __forceinline__ float key_max<float>() {
+  return __int_as_float(0x7f800000);  // +inf
+}
+template <>
+__device__ __forceinline__ bf16 key_max<bf16>() {
+  return bf16{0x7f80};  // +inf
+}
 
 // Co-rank (Algorithm 2): the number of A elements among the first d outputs
 // of the stable A-priority merge of a[0:na] and b[0:nb], 0 <= d <= na + nb.
@@ -187,7 +197,7 @@ __global__ void sort_round_kernel(const K* __restrict__ kf, const uint32_t* __re
 
   if (static_cast<int>(blockIdx.x) >= n_data_tiles) {  // the sentinel/zero tail
     for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-      ko[out0 + j] = KeyMax<K>::value;
+      ko[out0 + j] = key_max<K>();
       if (kValues) vo[out0 + j] = 0;
     }
     return;

@@ -8,9 +8,15 @@ The counterparts of the reference's Pallas entry points
   ``csrc/merge.cu``;
 * :func:`sort_round` (K3, ``sort_round_pallas``) and :func:`sort_round_kv`
   (K4, ``sort_round_kv_pallas``): one flat merge-sort round,
-  ``csrc/sort_round.cu`` and ``csrc/sort_round_kv.cu``.
+  ``csrc/sort_round.cu`` and ``csrc/sort_round_kv.cu``;
+* :func:`merge_batched` (K5, ``merge_batched_pallas``),
+  :func:`merge_kv_batched` (K6, ``merge_kv_batched_pallas``),
+  :func:`merge_batched_ragged` (K7, ``merge_batched_ragged_pallas``) and
+  :func:`merge_kv_batched_ragged` (K8, ``merge_kv_batched_ragged_pallas``):
+  ``B`` independent row merges, the ragged ones with per-row valid
+  lengths, ``csrc/merge.cu``.
 
-All four share the tile body of ``csrc/merge_tile.cuh``.  A sort keeps one
+All of them share the tile body of ``csrc/merge_tile.cuh``.  A sort keeps one
 flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
 ``width``, then ``tile`` sentinel keys (with zero values).  One round
 merges each pair of runs into a run of ``2 * width`` and returns the same
@@ -18,8 +24,7 @@ layout.
 
 Each wrapper launches its kernel on a CUDA tensor (and counts the launch
 in ``<wrapper>.launches``) and raises if the launch fails; on a CPU tensor
-it runs the plain version beside it (``merge_ref``, ``merge_kv_ref``,
-``sort_round_ref``, ``sort_round_kv_ref``).  There is no fallback from one
+it runs the plain version beside it (``<wrapper>_ref``).  There is no fallback from one
 to the other.
 """
 
@@ -31,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import batched as _bat
 from repro_torch.core import merge_path as _mp
 
 from . import _build
@@ -50,6 +56,10 @@ _ARGTYPES = {
     "merge_kv": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I, _I, _P],
     "sort_round": [_P, _P, _I, _I, _I, _I, _P],
     "sort_round_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "merge_batched": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I, _I, _P],
+    "merge_kv_batched": [_P, _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _P],
+    "merge_batched_ragged": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _P],
+    "merge_kv_batched_ragged": [_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _I, _I, _P],
 }
 
 
@@ -307,7 +317,216 @@ def sort_round_kv(
 
 sort_round_kv.launches = 0
 
-WRAPPERS = (merge, merge_kv, sort_round, sort_round_kv)
+# ---------------------------------------------------------------------------
+# K5 - K8: B row merges, ragged or not
+# ---------------------------------------------------------------------------
+
+
+def _row_stride(x: torch.Tensor) -> int:
+    """The row stride of ``(B, n)`` rows whose elements are adjacent."""
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"rows must have unit element stride, got strides {x.stride()}")
+    return x.stride(0)
+
+
+def _check_rows(what: str, a: torch.Tensor, b: torch.Tensor, tile: int, dtypes, kind: str = "keys") -> None:
+    """Checks of a pair of ``(B, na)``/``(B, nb)`` row operands."""
+    if a.dtype != b.dtype:
+        raise TypeError(f"{what}: the kernel takes equal {kind} dtypes, got {a.dtype} and {b.dtype}")
+    if a.dtype not in dtypes:
+        raise TypeError(f"{what}: {kind} dtype {a.dtype} is not one of {dtypes}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"{what}: expected (B, na) and (B, nb) with equal B, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"{what}: operands on {a.device} and {b.device}")
+    _row_stride(a)
+    _row_stride(b)
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"{what}: tile must lie in [1, {MAX_TILE}], got {tile}")
+
+
+def _check_row_values(what: str, ak, av, bk, bv, tile: int) -> None:
+    _check_rows(what, ak, bk, tile, MERGE_KEY_DTYPES)
+    _check_rows(what, av, bv, tile, MERGE_VALUE_DTYPES, "values")
+    if av.shape != ak.shape or bv.shape != bk.shape:
+        raise ValueError(
+            f"{what}: value shapes must match key shapes: keys {tuple(ak.shape)}/{tuple(bk.shape)}, "
+            f"values {tuple(av.shape)}/{tuple(bv.shape)}"
+        )
+    if av.device != ak.device:
+        raise ValueError(f"{what}: keys on {ak.device}, values on {av.device}")
+    if ak.shape[0] > 1 and (_row_stride(av) != _row_stride(ak) or _row_stride(bv) != _row_stride(bk)):
+        raise ValueError(f"{what}: values must have their keys' row strides")
+
+
+def _check_lens(what: str, lens: torch.Tensor, rows: torch.Tensor) -> None:
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (rows.shape[0],) or not lens.is_contiguous():
+        raise ValueError(f"{what}: lengths must be a contiguous ({rows.shape[0]},) int32 tensor, "
+                         f"got {lens.dtype} {tuple(lens.shape)}")
+    if lens.device != rows.device:
+        raise ValueError(f"{what}: lengths on {lens.device}, rows on {rows.device}")
+
+
+def merge_batched_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: :func:`repro_torch.core.merge_batched`."""
+    return _bat.merge_batched(a, b)
+
+
+def merge_batched(a: torch.Tensor, b: torch.Tensor, *, tile: int = DEFAULT_TILE, leaf: int = DEFAULT_LEAF) -> torch.Tensor:
+    """Stable A-priority merge of ``B`` pairs of sorted rows (K5).
+
+    ``a`` is ``(B, na)``, ``b`` is ``(B, nb)``, one key dtype as in
+    :func:`merge`; each may be a view with any row stride whose elements
+    are adjacent.  Returns the contiguous ``(B, na + nb)`` merged rows.  A
+    CUDA tensor launches the kernel (counted in ``merge_batched.launches``);
+    a CPU tensor takes :func:`merge_batched_ref`.
+    """
+    _check_rows("merge_batched", a, b, tile, MERGE_KEY_DTYPES)
+    if not _on_card("merge_batched", a):
+        return merge_batched_ref(a, b)
+    (bsz, na), nb = a.shape, b.shape[1]
+    out = torch.empty((bsz, na + nb), dtype=a.dtype, device=a.device)
+    if out.numel():
+        _launch("merge_batched", "merge", "merge_batched", a.dtype, a.device,
+                a.data_ptr(), na, a.stride(0), b.data_ptr(), nb, b.stride(0), out.data_ptr(), na + nb,
+                bsz, tile, _leaf(tile, leaf))
+        merge_batched.launches += 1
+    return out
+
+
+merge_batched.launches = 0
+
+
+def merge_kv_batched_ref(
+    ak: torch.Tensor, av: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: :func:`repro_torch.core.merge_kv_batched`."""
+    return _bat.merge_kv_batched(ak, av, bk, bv)
+
+
+def merge_kv_batched(
+    ak: torch.Tensor,
+    av: torch.Tensor,
+    bk: torch.Tensor,
+    bv: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    leaf: int = DEFAULT_LEAF,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable key-value merge of ``B`` pairs of sorted rows (K6).
+
+    Keys as in :func:`merge_batched`; values int32 or float32, one dtype,
+    with their keys' shapes and row strides.  Returns the merged ``(keys,
+    values)``.  A CUDA tensor launches the kernel (counted in
+    ``merge_kv_batched.launches``); a CPU tensor takes
+    :func:`merge_kv_batched_ref`.
+    """
+    _check_row_values("merge_kv_batched", ak, av, bk, bv, tile)
+    if not _on_card("merge_kv_batched", ak):
+        return merge_kv_batched_ref(ak, av, bk, bv)
+    (bsz, na), nb = ak.shape, bk.shape[1]
+    ko = torch.empty((bsz, na + nb), dtype=ak.dtype, device=ak.device)
+    vo = torch.empty((bsz, na + nb), dtype=av.dtype, device=ak.device)
+    if ko.numel():
+        _launch("merge_kv_batched", "merge", "merge_kv_batched", ak.dtype, ak.device,
+                ak.data_ptr(), av.data_ptr(), na, ak.stride(0), bk.data_ptr(), bv.data_ptr(), nb, bk.stride(0),
+                ko.data_ptr(), vo.data_ptr(), na + nb, bsz, tile, _leaf(tile, leaf))
+        merge_kv_batched.launches += 1
+    return ko, vo
+
+
+merge_kv_batched.launches = 0
+
+
+def merge_batched_ragged_ref(a: torch.Tensor, b: torch.Tensor, a_lens, b_lens) -> torch.Tensor:
+    """Plain version of K7: :func:`repro_torch.core.merge_batched_ragged`."""
+    return _bat.merge_batched_ragged(a, b, a_lens, b_lens)
+
+
+def merge_batched_ragged(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    a_lens: torch.Tensor,
+    b_lens: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    leaf: int = DEFAULT_LEAF,
+) -> torch.Tensor:
+    """Ragged stable merge of ``B`` pairs of rows (K7).
+
+    Rows as in :func:`merge_batched`; ``a_lens`` and ``b_lens`` are ``(B,)``
+    int32 on the rows' device.  The kernel clamps each length to ``[0,
+    na]`` (``[0, nb]``) and never reads past it.  Row ``r`` of the result
+    starts with the merge of ``a[r, :a_lens[r]]`` and ``b[r, :b_lens[r]]``,
+    followed by sentinel keys.  A CUDA tensor launches the kernel (counted
+    in ``merge_batched_ragged.launches``); a CPU tensor takes
+    :func:`merge_batched_ragged_ref`.
+    """
+    _check_rows("merge_batched_ragged", a, b, tile, MERGE_KEY_DTYPES)
+    _check_lens("merge_batched_ragged", a_lens, a)
+    _check_lens("merge_batched_ragged", b_lens, a)
+    if not _on_card("merge_batched_ragged", a):
+        return merge_batched_ragged_ref(a, b, a_lens, b_lens)
+    (bsz, na), nb = a.shape, b.shape[1]
+    out = torch.empty((bsz, na + nb), dtype=a.dtype, device=a.device)
+    if out.numel():
+        _launch("merge_batched_ragged", "merge", "merge_batched_ragged", a.dtype, a.device,
+                a.data_ptr(), na, a.stride(0), a_lens.data_ptr(), b.data_ptr(), nb, b.stride(0), b_lens.data_ptr(),
+                out.data_ptr(), na + nb, bsz, tile, _leaf(tile, leaf))
+        merge_batched_ragged.launches += 1
+    return out
+
+
+merge_batched_ragged.launches = 0
+
+
+def merge_kv_batched_ragged_ref(
+    ak: torch.Tensor, av: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor, a_lens, b_lens
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K8: :func:`repro_torch.core.merge_kv_batched_ragged`."""
+    return _bat.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens)
+
+
+def merge_kv_batched_ragged(
+    ak: torch.Tensor,
+    av: torch.Tensor,
+    bk: torch.Tensor,
+    bv: torch.Tensor,
+    a_lens: torch.Tensor,
+    b_lens: torch.Tensor,
+    *,
+    tile: int = DEFAULT_TILE,
+    leaf: int = DEFAULT_LEAF,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged stable key-value merge of ``B`` pairs of rows (K8).
+
+    Operands as in :func:`merge_kv_batched`, lengths as in
+    :func:`merge_batched_ragged`.  Past each row's merged length the keys
+    are sentinel and the values zero.  A CUDA tensor launches the kernel
+    (counted in ``merge_kv_batched_ragged.launches``); a CPU tensor takes
+    :func:`merge_kv_batched_ragged_ref`.
+    """
+    _check_row_values("merge_kv_batched_ragged", ak, av, bk, bv, tile)
+    _check_lens("merge_kv_batched_ragged", a_lens, ak)
+    _check_lens("merge_kv_batched_ragged", b_lens, ak)
+    if not _on_card("merge_kv_batched_ragged", ak):
+        return merge_kv_batched_ragged_ref(ak, av, bk, bv, a_lens, b_lens)
+    (bsz, na), nb = ak.shape, bk.shape[1]
+    ko = torch.empty((bsz, na + nb), dtype=ak.dtype, device=ak.device)
+    vo = torch.empty((bsz, na + nb), dtype=av.dtype, device=ak.device)
+    if ko.numel():
+        _launch("merge_kv_batched_ragged", "merge", "merge_kv_batched_ragged", ak.dtype, ak.device,
+                ak.data_ptr(), av.data_ptr(), na, ak.stride(0), a_lens.data_ptr(),
+                bk.data_ptr(), bv.data_ptr(), nb, bk.stride(0), b_lens.data_ptr(),
+                ko.data_ptr(), vo.data_ptr(), na + nb, bsz, tile, _leaf(tile, leaf))
+        merge_kv_batched_ragged.launches += 1
+    return ko, vo
+
+
+merge_kv_batched_ragged.launches = 0
+
+WRAPPERS = (merge, merge_kv, sort_round, sort_round_kv, merge_batched, merge_kv_batched,
+            merge_batched_ragged, merge_kv_batched_ragged)
 
 
 def reset_launches() -> None:

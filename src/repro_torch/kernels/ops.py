@@ -5,6 +5,13 @@ dispatch:
 
 * :func:`merge` / :func:`merge_kv`: the core rank merge when the whole
   merge fits in one tile (``n <= tile``), else one launch of K1 / K2;
+* :func:`merge_batched`, :func:`merge_kv_batched`,
+  :func:`merge_batched_ragged` and :func:`merge_kv_batched_ragged`: the
+  core merge of the rows when a row pair fits in one tile
+  (``na + nb <= tile``), else one launch of K5 / K6 / K7 / K8;
+* :func:`merge_k`: the k-way tournament, ``ceil(log2 k)`` rounds of
+  :func:`merge_batched_ragged` that read the previous round's even and
+  odd rows in place;
 * :func:`sort`, :func:`sort_kv`, :func:`sort_batched`,
   :func:`sort_kv_batched` and :func:`topk_batched`: bottom-up merge-sort
   rounds over a flat buffer of power-of-two rows.  Narrow rounds
@@ -14,7 +21,9 @@ dispatch:
   one sentinel tail appended once per sort, not once per round.  Integer
   keys-only sorts run K3; float keys compare their int
   :func:`~repro_torch.core.total_order_keys` (NaN last) through K4 with
-  an index payload, and the result is gathered through that permutation.
+  an index payload, and the result is gathered through that permutation;
+* :func:`topk_batched_ragged`: the sampler's masked vocab, the keys past
+  each row's length masked before the same K4 sort.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor runs their
 plain versions.  There is no fallback chain from one to another.
@@ -94,6 +103,149 @@ def merge_kv(
     )
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as rows the K5-K8 kernels read in place: any row stride, but
+    adjacent elements."""
+    return x if x.shape[1] <= 1 or x.stride(1) == 1 else x.contiguous()
+
+
+def _kv_rows(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys and values as rows, the values at their keys' row stride."""
+    k, v = _rows(k), _rows(v)
+    if k.shape[0] > 1 and k.stride(0) != v.stride(0):
+        return k.contiguous(), v.contiguous()
+    return k, v
+
+
+def merge_batched(
+    a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None
+) -> torch.Tensor:
+    """Stable merge of ``B`` row pairs: ``(B, na) + (B, nb) -> (B, na + nb)``.
+
+    The operands are cast to :func:`~repro_torch.core.result_type`.  One
+    K5 launch for the whole batch when ``na + nb > tile``, the core
+    batched merge otherwise.
+    """
+    n = a.shape[1] + b.shape[1]
+    tile, leaf = _resolve(n, tile, leaf)
+    if n <= tile:
+        return _bat.merge_batched(a, b)
+    dtype = _mp.result_type(a.dtype, b.dtype)
+    return _kern.merge_batched(_rows(a.to(dtype)), _rows(b.to(dtype)), tile=tile, leaf=leaf)
+
+
+def merge_kv_batched(
+    ak: torch.Tensor,
+    av: torch.Tensor,
+    bk: torch.Tensor,
+    bv: torch.Tensor,
+    *,
+    tile: Optional[int] = None,
+    leaf: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable batched key-value merge: one K6 launch when ``na + nb > tile``,
+    the core batched merge otherwise.  The kernel carries int32 or float32
+    values."""
+    n = ak.shape[1] + bk.shape[1]
+    tile, leaf = _resolve(n, tile, leaf)
+    if n <= tile:
+        return _bat.merge_kv_batched(ak, av, bk, bv)
+    kd = _mp.result_type(ak.dtype, bk.dtype)
+    vd = _mp.result_type(av.dtype, bv.dtype)
+    ak, av = _kv_rows(ak.to(kd), av.to(vd))
+    bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
+    return _kern.merge_kv_batched(ak, av, bk, bv, tile=tile, leaf=leaf)
+
+
+def merge_batched_ragged(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    a_lens,
+    b_lens,
+    *,
+    tile: Optional[int] = None,
+    leaf: Optional[int] = None,
+) -> torch.Tensor:
+    """Ragged batched merge: per-row valid lengths, sentinel after each
+    row's merged prefix.
+
+    The lengths are clipped to ``[0, n]`` (a scalar broadcasts).  One K7
+    launch when ``na + nb > tile``, the core ragged merge otherwise.
+    """
+    (bsz, na), nb = a.shape, b.shape[1]
+    tile, leaf = _resolve(na + nb, tile, leaf)
+    if na + nb <= tile:
+        return _bat.merge_batched_ragged(a, b, a_lens, b_lens)
+    dtype = _mp.result_type(a.dtype, b.dtype)
+    a_lens = _bat._as_lens(a_lens, bsz, na, a.device)
+    b_lens = _bat._as_lens(b_lens, bsz, nb, a.device)
+    return _kern.merge_batched_ragged(_rows(a.to(dtype)), _rows(b.to(dtype)), a_lens, b_lens, tile=tile, leaf=leaf)
+
+
+def merge_kv_batched_ragged(
+    ak: torch.Tensor,
+    av: torch.Tensor,
+    bk: torch.Tensor,
+    bv: torch.Tensor,
+    a_lens,
+    b_lens,
+    *,
+    tile: Optional[int] = None,
+    leaf: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged batched key-value merge: one K8 launch when ``na + nb > tile``,
+    the core ragged merge otherwise.  Past each row's merged length the keys
+    are sentinel and the values zero."""
+    (bsz, na), nb = ak.shape, bk.shape[1]
+    tile, leaf = _resolve(na + nb, tile, leaf)
+    if na + nb <= tile:
+        return _bat.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens)
+    kd = _mp.result_type(ak.dtype, bk.dtype)
+    vd = _mp.result_type(av.dtype, bv.dtype)
+    a_lens = _bat._as_lens(a_lens, bsz, na, ak.device)
+    b_lens = _bat._as_lens(b_lens, bsz, nb, ak.device)
+    ak, av = _kv_rows(ak.to(kd), av.to(vd))
+    bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
+    return _kern.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens, tile=tile, leaf=leaf)
+
+
+def merge_k(
+    runs: torch.Tensor,
+    lens=None,
+    *,
+    tile: Optional[int] = None,
+    leaf: Optional[int] = None,
+) -> torch.Tensor:
+    """k-way tournament merge of the sorted rows of a ``(k, n)`` tensor.
+
+    The contract of :func:`repro_torch.core.merge_k` for a stacked tensor:
+    stable with lower-run priority; ``lens`` optionally gives each run's
+    valid length; the output is always ``(k * n,)``: the merged valid
+    elements, then sentinel padding.  The run count is padded to a power
+    of two with zero-length runs, and each of the ``ceil(log2 k)`` rounds
+    is one :func:`merge_batched_ragged` call whose A and B are the even
+    and odd rows of the previous round, read in place (one K7 launch once
+    a pair of runs is wider than a tile).
+    """
+    if not isinstance(runs, torch.Tensor) or runs.ndim != 2:
+        raise ValueError(f"expected a (k, n) runs tensor, got {getattr(runs, 'shape', type(runs))}")
+    k, n = runs.shape
+    sent = _mp.max_sentinel(runs.dtype)
+    if lens is None:
+        run_lens = torch.full((k,), n, dtype=torch.int32, device=runs.device)
+    else:
+        run_lens = _bat._as_lens(lens, k, n, runs.device)
+    if k == 1:  # no round runs: mask the tail here
+        return _bat._mask_rows(runs, run_lens, sent)[0]
+    stacked, run_lens = _bat._pad_runs_pow2(_rows(runs), run_lens, sent)
+    while stacked.shape[0] > 1:
+        stacked = merge_batched_ragged(
+            stacked[0::2], stacked[1::2], run_lens[0::2], run_lens[1::2], tile=tile, leaf=leaf
+        )
+        run_lens = run_lens[0::2] + run_lens[1::2]
+    return stacked[0][: k * n]  # the pad rows add only trailing sentinels
+
+
 # ---------------------------------------------------------------------------
 # sorts: flat rounds, padding hoisted out of the loop
 # ---------------------------------------------------------------------------
@@ -153,12 +305,18 @@ def _sort_kv_batched_impl(
     return ks.reshape(bsz, m)[:, :n], vs.reshape(bsz, m)[:, :n]
 
 
-def _argsort_batched(keys: torch.Tensor, n: int, tile: int, leaf: int) -> torch.Tensor:
+def _argsort_batched(
+    keys: torch.Tensor, n: int, tile: int, leaf: int, lens: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Stable row-wise argsort (int32) of ``(B, n)`` keys: K4 over the int
     total-order keys (floats: NaN last) or the keys themselves, with an
-    index payload."""
+    index payload.  With ``lens``, the keys past each row's length are
+    masked with the sentinel first, so they sort after every valid key."""
     idx = torch.arange(n, dtype=torch.int32, device=keys.device).expand(keys.shape[0], n)
-    _, perm = _sort_kv_batched_impl(_mp.total_order_keys(keys), idx, n, tile, leaf)
+    keys = _mp.total_order_keys(keys)
+    if lens is not None:
+        keys = _bat._mask_rows(keys, lens, _mp.max_sentinel(keys.dtype))
+    _, perm = _sort_kv_batched_impl(keys, idx, n, tile, leaf)
     return perm
 
 
@@ -238,3 +396,30 @@ def topk_batched(
     tile, leaf = _sort_tile(n, tile, leaf)
     top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf)[:, :k]
     return torch.gather(x, 1, top_idx.long()), top_idx
+
+
+def topk_batched_ragged(
+    x: torch.Tensor,
+    k: int,
+    lens,
+    *,
+    tile: Optional[int] = None,
+    leaf: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged row-wise descending top-k on the kernel-backed batched kv-sort.
+
+    The contract of :func:`repro_torch.core.topk_batched_ragged`: ``(values,
+    int32 indices)``, each ``(B, min(k, n))``, over each row's valid
+    prefix ``x[r, :lens[r]]``; slots past a row's length return index
+    ``-1`` and the dtype's minimum.  The keys past each length are masked
+    with the sentinel before the same sort as :func:`topk_batched`, whose
+    wide rounds launch K4 on a CUDA ``x``.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"topk_batched_ragged expects (B, n) rows, got shape {tuple(x.shape)}")
+    bsz, n = x.shape
+    k = min(k, n)
+    lens = _bat._as_lens(lens, bsz, n, x.device)
+    tile, leaf = _sort_tile(n, tile, leaf)
+    top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf, lens)[:, :k]
+    return _bat._mask_topk(x, top_idx, lens)

@@ -18,14 +18,13 @@ Where the profiler records no device time, it says "not measured".
 
 from __future__ import annotations
 
-import time
-
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models import forward_decode, init_caches, init_params
 from repro_torch.serving import topk_sample
+from repro_torch.telemetry import WALL
 
 ARCH, BATCH, MAX_SEQ, ITERS = "tinyllama-1.1b", 2, 64, 5
 
@@ -34,11 +33,11 @@ def _trace(fn, iters: int) -> dict:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = WALL.now()
     for _ in range(iters):
         fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    wall_ms = (WALL.now() - t0) / 1e3 / iters
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()

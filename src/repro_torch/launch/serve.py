@@ -11,13 +11,13 @@ by default).
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.models import init_params
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.telemetry import WALL
 
 
 def main(argv=None) -> None:
@@ -36,14 +36,14 @@ def main(argv=None) -> None:
     engine = ServingEngine(cfg, params, batch=args.batch, max_seq=args.max_seq, device=args.device)
 
     rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
+    t0 = WALL.now()
     for uid in range(args.requests):
         plen = int(rng.integers(4, 12))
         prompt = rng.integers(1, cfg.vocab_size, size=plen).astype(np.int32)
         engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=args.max_new,
                               temperature=args.temperature))
     report = engine.run_until_done()
-    dt = time.perf_counter() - t0
+    dt = (WALL.now() - t0) / 1e6
     total_tokens = sum(len(r.generated) for r in engine.done.values())
     print(f"served {len(engine.done)} requests on {engine.device}, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s), ok={report.ok()}")

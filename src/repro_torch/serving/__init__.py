@@ -1,4 +1,4 @@
 from .engine import Request, ServingEngine, ServingReport
-from .sampler import greedy, topk_sample
+from .sampler import greedy, topk_sample, topp_sample
 
-__all__ = ["Request", "ServingEngine", "ServingReport", "greedy", "topk_sample"]
+__all__ = ["Request", "ServingEngine", "ServingReport", "greedy", "topk_sample", "topp_sample"]
