@@ -33,7 +33,15 @@ Phases (any failure raises, and the script exits non-zero):
    weights from a seed), 4 requests with top-k sampling; the K4 launch
    count must be 6 per sampled token.  Then the reduced config on the card
    against the same weights on the CPU;
-7. the ``kernels`` line, the card line and the result line.
+7. SSM (:func:`phase_ssm`): K9, the fused selective scan, against its plain
+   version at falcon-mamba's layer shapes (D = 8192, state 16) and at edge
+   shapes; falcon-mamba-7b at full width (random weights from a seed, fused
+   scan) prefilled on a (1, 32768) prompt with ``make_prefill_step`` (K9
+   once per layer: 64 launches), then 16 tokens sampled with top-k 40 on K4
+   through ``make_decode_step``; K9 on layer 0's own inputs; prefill against
+   stepping at full width; the reduced config on the card against the CPU;
+   CUDA-event times of K9 and its plain version;
+8. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -282,7 +290,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
 
     from repro_torch.core.merge_path import max_sentinel
     from repro_torch.kernels import merge_path as km
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, reset_launches
 
     on_card = device == "cuda"
     gen = torch.Generator(device=device)
@@ -393,7 +401,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     av = torch.arange(n1, dtype=torch.int32, device=device)
     bv = torch.arange(n1, 2 * n1, dtype=torch.int32, device=device)
     keys = shuffled("random", torch.int32)
-    km.reset_launches()
+    reset_launches()  # every kernel's count, K1-K9
     merged = ops.merge(a, b, tile=tile, leaf=leaf)
     mk, mv = ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf)
     sorted_keys = ops.sort(keys, tile=tile, leaf=leaf)
@@ -550,7 +558,7 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     from repro_torch import core
     from repro_torch.core.merge_path import max_sentinel
     from repro_torch.kernels import merge_path as km
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, reset_launches
     from repro_torch.serving import topk_sample, topp_sample
 
     on_card = device == "cuda"
@@ -648,7 +656,7 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     wakj, wbkj = junk_tails(wak, wal, gen), junk_tails(wbk, wbl, gen)
     core_a, core_b = sorted_side("dups", tile // 4, torch.float32, gen, device, bsz), sorted_side("dups", tile // 2, torch.float32, gen, device, bsz)
     core_al, core_bl = ragged_lens(bsz, tile // 4, tile // 2, gen, device)
-    km.reset_launches()
+    reset_launches()  # every kernel's count, K1-K9
     path = {
         "merge_batched": ops.merge_batched(wa, wb, tile=tile, leaf=leaf),
         "merge_kv_batched": ops.merge_kv_batched(wak, wav, wbk, wbv, tile=tile, leaf=leaf),
@@ -785,7 +793,8 @@ def phase_serving() -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.merge_path import reset_launches, sort_round_kv
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.merge_path import sort_round_kv
     from repro_torch.models import forward_decode, init_caches, init_params
     from repro_torch.serving import Request, ServingEngine, topk_sample
 
@@ -873,6 +882,283 @@ def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
+SCAN_SHAPES = ((1, 4096), (4, 1000), (3, 129), (2, 1))  # (B, S) at the layer's D and st
+SCAN_EDGES = ((2, 77, 200, 16), (2, 77, 200, 8), (1, 50, 40, 16))  # (B, S, D, st): ragged D, both st
+SCAN_CHUNK = 128  # falcon-mamba's ssm_chunk
+# K9 against its plain version: the kernel's exp is ex2.approx (a few float32
+# ulps each) and its sums run in another order, and the error of a state is the
+# sum of its steps' errors over the recurrence's memory (about 1 / |dt * a|
+# steps), which on these inputs (dt = softplus(N(0, 1)), a = -exp(N(0, 1)),
+# the reference's own test inputs) stays within 1e-5 of max|y|.  A bfloat16 y
+# may also round to the neighbouring value: one bfloat16 ulp more.
+SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
+# prefill against stepping at full width, of max|state|: the conv states are
+# the same bfloat16 values (read 0), and the ssm states differ by K9's
+# ex2.approx against torch.exp and their sums' order (read 4.67e-8 of max,
+# PERF.md); 1e-5 is SCAN_RTOL, the kernel's own bound against its plain version
+STEP_RTOL = 1e-5
+
+
+def scan_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
+    """Least time of one K9 call: each input read once and each output
+    written once (``sizes`` = bytes of dt, x and y, B and C, a; h_final in
+    float32), against 7 float32 operations per state and step and one per
+    (b, t, d) (``dt * x``) at the card's float32 rate outside the tensor
+    cores.  Also the time of its exponentials alone on the special-function
+    units (16 per SM per clock, 132 SMs at 1.98 GHz)."""
+    dt_b, x_b, bc_b, a_b = sizes
+    n = bsz * s * d
+    nbytes = n * (dt_b + 2 * x_b) + 2 * bsz * s * st * bc_b + d * st * a_b + 4 * bsz * d * st
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n + 7 * n * st) / SCALAR_OPS_PER_S * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "exp_unit_ms": n * st / (16 * 132 * 1.98e9) * 1e3}
+
+
+def scan_inputs(bsz: int, s: int, d: int, st: int, act_dtype, gen, device: str):
+    """``(dt float32, x, B, C, a)`` as the model hands them to K9, with
+    ``x``/``B``/``C``/``a`` in ``act_dtype``."""
+    import torch
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    dt = F.softplus(normal(bsz, s, d))
+    x, bm, cm = normal(bsz, s, d).to(act_dtype), normal(bsz, s, st).to(act_dtype), normal(bsz, s, st).to(act_dtype)
+    return dt, x, bm, cm, (-torch.exp(normal(d, st))).to(act_dtype)
+
+
+def scan_err(got, want, what: str, rtol: float = SCAN_RTOL, atol: float = SCAN_ATOL) -> float:
+    """Max abs difference of two results; raises unless every element lies
+    within ``rtol * max|want| + atol`` (plus one ulp of the value for bfloat16)."""
+    import torch
+
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    check(bool(torch.isfinite(g).all()), f"{what}: not finite")
+    tol = rtol * float(w.abs().max()) + atol
+    if got.dtype == torch.bfloat16:  # one ulp: 8 significant bits
+        tol = tol + torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8))
+    err = (g - w).abs()
+    check(bool((err <= tol).all()), f"{what}: differs by {float(err.max())} (max|want| {float(w.abs().max())})")
+    return float(err.max())
+
+
+def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool = False, prompt: int = 32768,
+              new_tokens: int = 16, step_prompt: int = 64, shapes=SCAN_SHAPES, d: int = 8192, st: int = 16,
+              edges=SCAN_EDGES, seed: int = 3) -> dict:
+    """K9 and falcon-mamba-7b: prefill on the fused scan kernel, then decode.
+
+    1. K9 against its plain version at the layer's shapes ``(B, S)`` in
+       ``shapes`` at ``(d, st)``, and at the ``edges`` (a D that is no
+       multiple of the block's 32 channels, both state widths the kernel
+       takes): the main path's dtypes (dt float32, x/B/C/a bfloat16) and
+       all-float32, with and without chunk checkpoints; y, h_final and
+       hstart within the stated tolerance.
+    2. The main path, driven once with every count at 0: ``arch`` at full
+       width (random weights from seed 0, ``ssm_backend="fused"``),
+       ``make_prefill_step`` on a ``(1, prompt)`` prompt, then
+       ``new_tokens`` tokens sampled with top-k 40 on K4, the first from
+       the prefill's logits and each next one after a ``make_decode_step``.
+       K9 must run once per layer, K4 its wide rounds per sampled token.
+       Then K9 on layer 0's own inputs against its plain version, and the
+       times.
+    3. Prefill against stepping: layer 0's states after ``make_prefill_step``
+       of the first ``step_prompt`` tokens against ``step_prompt`` decode
+       steps, at full width; then the reduced config (float32) on this
+       device against the same weights on the CPU (prefill, then 4 decode
+       steps).
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the wrappers run their plain versions, nothing is launched or timed,
+    and every check still runs.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.kernels.tune import pick
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.transformer import _dtype
+    from repro_torch.serving import topk_sample
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.train.steps import _cast
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    max_err, cases = 0.0, 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def compare(args, what, checkpoints, chunk=SCAN_CHUNK):
+        nonlocal max_err, cases
+        before = ks.ssm_scan.launches
+        got = ks.ssm_scan(*args, chunk=chunk, checkpoints=checkpoints)
+        check(ks.ssm_scan.launches - before == int(on_card), f"ssm_scan {what}: {ks.ssm_scan.launches - before} launches")
+        want = ks.ssm_scan_ref(*args, chunk=chunk, checkpoints=checkpoints)
+        for part, g, w in zip(("y", "h_final", "hstart"), got, want):
+            max_err = max(max_err, scan_err(g, w, f"ssm_scan {what} {part}"))
+        cases += 1
+        return got
+
+    # 1. K9 against its plain version
+    for bsz, s, d_, st_ in [(b, s_, d, st) for b, s_ in shapes] + list(edges):
+        for act in (torch.bfloat16, torch.float32):
+            args = scan_inputs(bsz, s, d_, st_, act, gen, device)
+            for ckpt in (False, True):
+                compare(args, f"({bsz}, {s}, {d_}, {st_}) x {str(act)[6:]} checkpoints={ckpt}", ckpt)
+    print(f"ssm: {cases} K9 calls against the plain version (y, h_final, hstart) within {SCAN_RTOL:g} * max|want| "
+          f"+ {SCAN_ATOL:g} (bfloat16 y: + 1 ulp), max abs err {max_err:.3g}")
+
+    # 2. the main path at full width, driven once with every count at 0
+    base = get_config(arch)
+    cfg = dataclasses.replace(base.reduced() if reduce else base, ssm_backend="fused")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"ssm: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, d_inner={cfg.d_inner}, state {cfg.ssm_state}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}, fused scan), {n_bytes / 1e9:.3f} GB of weights from seed 0 "
+          f"in {time.perf_counter() - t0:.2f} s")
+    params = _cast(params, _dtype(cfg))  # once, as the engine does: the steps' own cast then copies nothing
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    layer0 = []
+    real_scan = ssm_mod.ssm_scan
+
+    def keep_layer0(*args, **kw):  # the model's own K9 inputs of layer 0, for the checks below
+        if not layer0:
+            layer0.append((args, kw))
+        return real_scan(*args, **kw)
+
+    ssm_mod.ssm_scan = keep_layer0
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens})
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_k9 = ks.ssm_scan.launches
+        state0 = caches["sub0"]["ssm"][0].clone()
+        sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            pos = torch.full((1,), prompt + i, device=device)
+            logits, caches = decode(params, caches, sampled[-1][:, None], pos)
+            sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+        sync()
+        decode_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in WRAPPERS}
+    finally:
+        ssm_mod.ssm_scan = real_scan
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    k4_rounds = wide_rounds(cfg.vocab_size, pick(cfg.vocab_size)[0])
+    want = dict.fromkeys(launches, 0)
+    want.update(ssm_scan=cfg.num_layers, sort_round_kv=new_tokens * k4_rounds)
+    check(prefill_k9 == (cfg.num_layers if on_card else 0), f"prefill launched K9 {prefill_k9} times")
+    check(launches == (want if on_card else dict.fromkeys(want, 0)), f"ssm path launched {launches}, want {want}")
+    ids = torch.cat(sampled)
+    check(ids.shape == (new_tokens,) and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"sampled ids {ids.tolist()}")
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all()), "decode logits not finite")
+    for name, t in caches["sub0"].items():
+        check(bool(torch.isfinite(t.float()).all()), f"cache {name} not finite")
+    print(f"ssm: prefill (1, {prompt}) in {prefill_s * 1e3:.1f} ms, K9 launched {prefill_k9} times; {new_tokens} tokens "
+          f"sampled (top-k 40), {new_tokens - 1} decode steps in {decode_s * 1e3:.1f} ms "
+          f"({decode_s * 1e3 / max(1, new_tokens - 1):.2f} ms per step with its sample); K4 launched "
+          f"{launches['sort_round_kv']} times ({k4_rounds} wide rounds per token: vocab {cfg.vocab_size} pads to "
+          f"{1 << (cfg.vocab_size - 1).bit_length()}); peak memory "
+          f"{'not measured' if peak_gb is None else f'{peak_gb:.2f} GB'}; ids {ids.tolist()}")
+
+    # K9 on layer 0's own inputs; its state is the one the prefill cached
+    args0, kw0 = layer0[0]
+    got = compare(args0, f"layer 0 of the prefill {tuple(args0[1].shape)}", False, kw0["chunk"])
+    check(torch.equal(got[1], state0), "layer 0's cached state is not K9's h_final on the same inputs")
+    out = {"launches": prefill_k9, "max_abs_err": max_err, "ms": None, "plain_ms": None, "bound_ms": None,
+           "bound_by": None, "library_ms": None}
+    if on_card:
+        bsz, s = args0[1].shape[:2]
+        sizes = tuple(t.element_size() for t in (args0[0], args0[1], args0[2], args0[4]))
+        bound = scan_bound(bsz, s, args0[1].shape[2], args0[2].shape[2], sizes)
+        out.update(ms=time_ms(lambda: ks.ssm_scan(*args0, **kw0)),
+                   plain_ms=time_ms(lambda: ks.ssm_scan_ref(*args0, **kw0), iters=1),
+                   bound_ms=bound["ms"], bound_by=bound["by"])
+        step_ms = time_ms(lambda: decode(params, caches, sampled[-1][:, None], pos), iters=5)
+        print(f"  K9 {tuple(args0[1].shape)} st {args0[2].shape[2]} (dt {args0[0].dtype}, x {args0[1].dtype}): "
+              f"kernel_ms {out['ms']:.5f}  plain_ms {out['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} ({bound['by']}; "
+              f"bytes {bound['bytes_ms']:.6f}, float32 ops {bound['ops_ms']:.6f}, exponentials on the SFUs "
+              f"{bound['exp_unit_ms']:.6f}); K9 in all {out['ms'] * prefill_k9:.2f} ms of the "
+              f"{prefill_s * 1e3:.1f} ms prefill; one decode step alone {step_ms:.3f} ms (CUDA events)")
+    del layer0, args0, got, caches
+
+    # 3. prefill against stepping at this width, on layer 0's states
+    short = tokens[:, :step_prompt]
+    _, pre = prefill(params, {"tokens": short})
+    stepped = init_caches(cfg, 1, step_prompt, device=device)
+    for t in range(step_prompt):
+        decode(params, stepped, short[:, t:t + 1], torch.full((1,), t, device=device))
+    step_err = {name: scan_err(pre["sub0"][name][0].float(), stepped["sub0"][name][0].float(),
+                               f"prefill against stepping, layer 0 {name}", STEP_RTOL, 0.0)
+                for name in ("ssm", "conv")}
+    rel = {k: v / float(stepped["sub0"][k][0].float().abs().max()) for k, v in step_err.items()}
+    print(f"ssm: layer 0 after prefill of {step_prompt} tokens against {step_prompt} decode steps: max abs err "
+          f"ssm {step_err['ssm']:.3g} ({rel['ssm']:.3g} of max), conv {step_err['conv']:.3g} ({rel['conv']:.3g} of max), "
+          f"tolerance {STEP_RTOL:g} of max")
+    del params, pre, stepped
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_ssm_reference(device, arch)
+    return out
+
+
+def phase_ssm_reference(device: str, arch: str) -> None:
+    """The reduced SSM config (float32, fused scan) on ``device`` against the
+    same weights on the CPU: prefill logits and caches, then 4 decode steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), ssm_backend="fused")  # 2 layers, d=64, state 8
+    cpu = init_params(cfg, seed=0, device="cpu")
+    dev = _to(cpu, device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 37)))
+    lc, cc, _ = forward_prefill(cfg, cpu, {"tokens": tokens})
+    lg, cg, _ = forward_prefill(cfg, dev, {"tokens": tokens.to(device)})
+    # float32 sums run in another order on the card, and K9's exp is ex2.approx: 1e-4 covers both
+    check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced prefill logits differ: {float((lg.cpu() - lc).abs().max())}")
+    for name in ("conv", "ssm"):
+        check(torch.allclose(cg["sub0"][name].cpu(), cc["sub0"][name], atol=1e-4, rtol=1e-4), f"reduced prefill {name} differs")
+    tok = lc.argmax(-1, keepdim=True)
+    for t in range(4):
+        pos = torch.full((2,), tokens.shape[1] + t)
+        lc, _ = forward_decode(cfg, cpu, cc, tok, pos)
+        lg, _ = forward_decode(cfg, dev, cg, tok.to(device), pos.to(device))
+        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced decode logits differ at step {t}: {float((lg.cpu() - lc).abs().max())}")
+        check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"greedy tokens differ at step {t}")
+        tok = lc.argmax(-1, keepdim=True)
+    print(f"ssm reference: reduced {arch} (fused scan) on {device} matches the CPU within 1e-4: prefill logits and "
+          "caches, then 4 decode steps; greedy tokens identical")
+
+
 def main() -> int:
     import torch
 
@@ -908,6 +1194,7 @@ def main() -> int:
     batched = phase_batched()
     serving = phase_serving()
     phase_reference()
+    ssm = phase_ssm()
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -923,6 +1210,8 @@ def main() -> int:
     kernels += [entry(name, "merge.cu", line, batched[name]["launches"], batched[name])
                 for name, line in (("merge_batched", 543), ("merge_kv_batched", 562),
                                    ("merge_batched_ragged", 721), ("merge_kv_batched_ragged", 749))]
+    kernels.append(dict(entry("ssm_scan", "ssm_scan.cu", 79, ssm["launches"], ssm),
+                        replaces="src/repro/kernels/ssm_scan.py:79"))
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
@@ -933,7 +1222,10 @@ def main() -> int:
           "merge_kv_batched_ragged's are one call at (64, 2^18) + (64, 2^18) (float32 keys; int32 keys and values; "
           "the ragged ones with the lengths of the path's run), library_ms one stable row-wise torch.sort of a‖b "
           "(the ragged ones: of the rows masked past their lengths; kv: and the gather of the values), their launches "
-          "those of the batched path's run (merge_batched_ragged: 1 direct call and 3 rounds of each of 3 ops.merge_k)")
+          "those of the batched path's run (merge_batched_ragged: 1 direct call and 3 rounds of each of 3 ops.merge_k); "
+          "ssm_scan's are one call on layer 0's own inputs of the falcon-mamba-7b prefill at (1, 32768, 8192, 16) "
+          "(dt float32, x, B, C and a bfloat16), library_ms null (no PyTorch call computes the recurrence), its "
+          "launches those of that prefill (one per layer)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,7 @@ class ModelConfig:
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     shared_expert_ff: int = 0  # dense shared-expert MLP width (0 = none)
-    # MoE dispatch sort; the port serves dense models only so far
+    # MoE dispatch sort; the port serves dense and SSM models only so far
     moe_dispatch: str = "merge_path"
 
     # --- SSM (mamba1) ---
@@ -46,7 +46,9 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 128  # chunked-scan block (materialization/compile trade)
-    # "scan" | "fused" selective-scan backend (SSM models: a later slice)
+    # "scan" (chunked scan, plain PyTorch) | "fused" (the hand-written
+    # selective-scan kernel, repro_torch.kernels.ssm_scan; forward only:
+    # its backward comes with the training slice)
     ssm_backend: str = "scan"
 
     # --- attention pattern ---

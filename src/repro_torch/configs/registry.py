@@ -8,14 +8,14 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import tinyllama_1_1b
+from . import falcon_mamba_7b, tinyllama_1_1b
 from .base import ModelConfig
 
-_MODULES = (tinyllama_1_1b,)
+_MODULES = (tinyllama_1_1b, falcon_mamba_7b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
-ALIASES = {"tinyllama": "tinyllama-1.1b"}
+ALIASES = {"tinyllama": "tinyllama-1.1b", "falcon-mamba": "falcon-mamba-7b"}
 
 
 def get_config(name: str) -> ModelConfig:

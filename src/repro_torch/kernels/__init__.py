@@ -1,10 +1,13 @@
 """Kernel layer: hand-written Hopper kernels, their plain versions, the sort surface.
 
 Importing this package builds nothing; ``nvcc`` runs at the first launch
-on a CUDA tensor (see :mod:`repro_torch.kernels._build`).
+on a CUDA tensor (see :mod:`repro_torch.kernels._build`).  ``WRAPPERS``
+lists every kernel wrapper (the merge-path kernels K1-K8 and the
+selective scan K9); :func:`reset_launches` sets all their launch counts
+to 0.
 """
 
-from . import ops
+from . import merge_path, ops, ssm_scan
 from .merge_path import (
     DEFAULT_LEAF,
     DEFAULT_TILE,
@@ -20,16 +23,24 @@ from .merge_path import (
     merge_kv_batched_ref,
     merge_kv_ref,
     merge_ref,
-    reset_launches,
     sort_round,
     sort_round_kv,
     sort_round_kv_ref,
     sort_round_ref,
 )
+WRAPPERS = merge_path.WRAPPERS + (ssm_scan.ssm_scan,)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+
 
 __all__ = [
     "DEFAULT_LEAF",
     "DEFAULT_TILE",
+    "WRAPPERS",
     "merge",
     "merge_batched",
     "merge_batched_ragged",
@@ -48,4 +59,5 @@ __all__ = [
     "sort_round_kv",
     "sort_round_kv_ref",
     "sort_round_ref",
+    "ssm_scan",
 ]

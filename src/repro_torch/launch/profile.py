@@ -1,11 +1,14 @@
-"""Where a token's time goes: one decode step and one top-k sample, traced.
+"""Where a token's time goes: decode steps, samples and a prefill, traced.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 
 Runs on the card only.  For full-width tinyllama-1.1b with random weights,
-at the serving shapes of ``chip_smoke.py`` (batch 2, max_seq 64), it
-prints, per phase (one decode step, one top-k sample of one vocab row
-through the K4 path):
+at the serving shapes of ``chip_smoke.py`` (batch 2, max_seq 64): one
+decode step and one top-k sample of one vocab row through the K4 path.
+Then for full-width falcon-mamba-7b (fused scan, random weights), at the
+shapes of ``chip_smoke.py``'s SSM phase: one ``make_prefill_step`` of a
+(1, 32768) prompt (64 K9 launches) and one ``make_decode_step`` with its
+top-k sample.  It prints, per phase:
 
 * wall ms per call (host clock, ended by ``torch.cuda.synchronize()``);
 * device busy ms per call: the sum of CUDA kernel and copy times that
@@ -18,15 +21,21 @@ Where the profiler records no device time, it says "not measured".
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models import forward_decode, init_caches, init_params
+from repro_torch.models.transformer import _dtype
 from repro_torch.serving import topk_sample
 from repro_torch.telemetry import WALL
+from repro_torch.train import make_decode_step, make_prefill_step
+from repro_torch.train.steps import _cast
 
 ARCH, BATCH, MAX_SEQ, ITERS = "tinyllama-1.1b", 2, 64, 5
+SSM_ARCH, SSM_PROMPT = "falcon-mamba-7b", 32768
 
 
 def _trace(fn, iters: int) -> dict:
@@ -81,6 +90,23 @@ def main() -> None:
         lambda: topk_sample(logits[:1], gen, k=40, temperature=0.8, backend="kernel"), ITERS))
     x = torch.zeros(16, device="cuda")
     _report("tiny op (x.add_(1))", _trace(lambda: x.add_(1), 200))
+    del params, caches, logits
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_backend="fused")
+    params = _cast(init_params(cfg, seed=0, device="cuda"), _dtype(cfg))  # once: the steps then copy nothing
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (1, SSM_PROMPT), generator=gen, device="cuda")
+    print(f"{cfg.name} full width, fused scan, prompt (1, {SSM_PROMPT})")
+    _report("prefill", _trace(lambda: prefill(params, {"tokens": tokens}), 1))
+    logits, caches = prefill(params, {"tokens": tokens})
+    tok = torch.ones((1, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((1,), SSM_PROMPT, dtype=torch.int64, device="cuda")
+
+    def step():
+        out, _ = decode(params, caches, tok, pos)
+        topk_sample(out, gen, k=40, temperature=0.8, backend="kernel")
+
+    _report("decode step with its top-k sample", _trace(step, ITERS))
 
 
 if __name__ == "__main__":

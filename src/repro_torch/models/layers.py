@@ -69,7 +69,7 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights, drawn in float32 on the generator's device."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w / math.sqrt(fan_in)).to(dtype)
+    return w.div_(math.sqrt(fan_in)).to(dtype)  # in place: one float32 copy at a time
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype, lead=()) -> Dict:

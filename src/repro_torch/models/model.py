@@ -1,10 +1,14 @@
-"""Top-level model API for the dense decode path: embed -> layers -> logits.
+"""Top-level model API: embed -> layers -> logits, for prefill and decode.
 
-The PyTorch counterpart of the reference's ``repro/models/model.py``.
-``forward_decode`` walks the layers in a Python loop (the reference scans
-them); caches keep the reference's layout, ``{"sub<i>": {"k", "v"}}`` with
-tensors of shape ``(num_groups, B, cache_len, K, hd)``, and are updated in
-place.
+The PyTorch counterpart of the reference's ``repro/models/model.py`` for
+the dense and SSM families.  ``forward_decode`` walks the layers in a
+Python loop (the reference scans them); caches keep the reference's
+layout, ``{"sub<i>": {...}}`` with a leading ``num_groups`` axis — ``k``
+and ``v`` ``(num_groups, B, cache_len, K, hd)`` for attention, ``conv``
+``(num_groups, B, k-1, d_inner)`` and ``ssm`` ``(num_groups, B, d_inner,
+state)`` float32 for Mamba — and are updated in place.
+``forward_prefill`` runs the SSM family (on the fused scan kernel with
+``ssm_backend="fused"``); attention prefill comes with a later slice.
 """
 
 from __future__ import annotations
@@ -14,13 +18,14 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import mlp_apply, rms_norm
-from .transformer import _dtype, _group_windows, check_family, init_params, layer_params
+from .transformer import _dtype, _group_windows, check_family, init_params, layer_params, stack_forward
 
-__all__ = ["init_params", "init_caches", "forward_decode"]
+__all__ = ["init_params", "init_caches", "forward_prefill", "forward_decode"]
 
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -42,29 +47,60 @@ def init_caches(
     """Zero decode caches on ``device`` (the card by default)."""
     check_family(cfg)
     dev = resolve_device(device)
-    gp = cfg.layer_group
-    ng = cfg.num_layers // gp
+    dtype = _dtype(cfg)
+    ng = cfg.num_layers // cfg.layer_group
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     caches = {}
     for i, w in enumerate(_group_windows(cfg)):
-        clen = min(cache_len, w) if w else cache_len
-        shape = (ng, batch, clen, kv, hd)
-        caches[f"sub{i}"] = {
-            "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-        }
+        sub = {}
+        if cfg.family != SSM:
+            clen = min(cache_len, w) if w else cache_len
+            sub["k"] = torch.zeros((ng, batch, clen, kv, hd), dtype=dtype, device=dev)
+            sub["v"] = torch.zeros((ng, batch, clen, kv, hd), dtype=dtype, device=dev)
+        if cfg.family in (SSM, HYBRID):
+            sub["conv"] = torch.zeros((ng, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=dev)
+            sub["ssm"] = torch.zeros((ng, batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=dev)
+        caches[f"sub{i}"] = sub
     return caches
+
+
+def _prepare_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Embed the tokens (modality prefixes and encoders come with their slices)."""
+    return _embed(cfg, params, torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device))
+
+
+def forward_prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache_len: int = 0):
+    """Run the prompt ``batch["tokens"] (B, S)``: ``(last-position logits
+    (B, V), caches, enc_kv)``, the caches in :func:`init_caches`' layout,
+    ready for :func:`forward_decode` at position ``S``; ``enc_kv`` is None.
+
+    The SSM family only, whose caches have no length (``cache_len`` is
+    the attention caches'): a family with attention raises until
+    attention prefill is ported (see ROADMAP.md).
+    """
+    check_family(cfg)
+    if cfg.family != SSM:
+        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
+    x, caches = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch))
+    logits = _logits(cfg, params, x[:, -1:])[:, 0]
+    return logits, caches, None
 
 
 def _layer_decode(cfg: ModelConfig, p: Dict, x, cache: Dict, pos, window: int):
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
-    out, _, _ = attn_mod.decode_attention(
-        p["attn"], h, cache["k"], cache["v"], pos,
-        num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        window=window, softcap=cfg.attn_logit_softcap,
-    )
-    x = x + out
+    if "attn" in p:
+        out, _, _ = attn_mod.decode_attention(
+            p["attn"], h, cache["k"], cache["v"], pos,
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=window, softcap=cfg.attn_logit_softcap,
+        )
+        x = x + out
+    if "mamba" in p:
+        out, conv, ssm = ssm_mod.mamba_decode(p["mamba"], h, cache["conv"], cache["ssm"], cfg)
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+        x = x + out
     if "ffn_norm" in p:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
     return x

@@ -1,23 +1,26 @@
-"""Dense decoder stack: parameter init and the per-layer layout.
+"""Decoder stacks: parameter init, the per-layer layout, the prefill stack.
 
 The PyTorch counterpart of the reference's ``repro/models/transformer.py``
-for the dense family.  Parameters keep the reference's layout so that
-weights convert one to one (:mod:`repro_torch.convert`): every layer
+for the dense and SSM families.  Parameters keep the reference's layout so
+that weights convert one to one (:mod:`repro_torch.convert`): every layer
 parameter is stacked on a leading ``num_layers`` axis, and layers are
-grouped in homogeneous groups of ``cfg.layer_group``.  Other families
-(MoE, SSM, hybrid, VLM, audio) come with later slices.
+grouped in homogeneous groups of ``cfg.layer_group``.  The prefill stack
+(:func:`stack_forward`) runs the SSM family; attention prefill and the
+other families (MoE, hybrid, VLM, audio) come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 
-from .layers import dense_init, mlp_init
+from . import ssm as ssm_mod
+from .layers import dense_init, mlp_apply, mlp_init, rms_norm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -28,7 +31,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this slice of the port does not run yet."""
-    if cfg.family != DENSE or cfg.num_experts or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
+    if cfg.family not in (DENSE, SSM) or cfg.num_experts or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in a later slice, see ROADMAP.md"
         )
@@ -49,10 +52,11 @@ def _layers_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     """All layers' parameters, stacked on a leading ``num_layers`` axis."""
     lead = (cfg.num_layers,)
     norm_shape = lead + (cfg.d_model,)
-    p: Dict[str, Any] = {
-        "attn_norm": torch.zeros(norm_shape, dtype=torch.float32, device=gen.device),
-        "attn": _attn_init(gen, cfg, dtype, lead),
-    }
+    p: Dict[str, Any] = {"attn_norm": torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)}
+    if cfg.family != SSM:
+        p["attn"] = _attn_init(gen, cfg, dtype, lead)
+    if cfg.family in (SSM, HYBRID):
+        p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, lead)
     if cfg.d_ff:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, lead)
         p["ffn_norm"] = torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)
@@ -97,3 +101,57 @@ def _group_windows(cfg: ModelConfig):
 def layer_params(layers: Dict, index: int) -> Dict:
     """One layer's parameters: views into the stacked tensors, no copies."""
     return {k: layer_params(v, index) if isinstance(v, dict) else v[index] for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# layer forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+    """One SSM-family layer over a whole sequence: ``(x', cache)``, the
+    cache ``{"conv", "ssm"}`` that decoding goes on from."""
+    if "attn" in p:
+        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
+    cache: Dict[str, torch.Tensor] = {}
+    y, cache["conv"], cache["ssm"] = _mamba_with_state(p["mamba"], rms_norm(x, p["attn_norm"], cfg.rms_eps), cfg)
+    x = x + y
+    if "ffn_norm" in p:
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
+    return x, cache
+
+
+def _mamba_with_state(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`~repro_torch.models.ssm.mamba_forward` that also returns the
+    final ``(conv, ssm)`` states for decoding."""
+    s = h.shape[1]
+    kk = cfg.ssm_conv
+    xin, z = torch.chunk(h @ p["in_proj"], 2, dim=-1)
+    xc, _ = ssm_mod._causal_conv(xin, p["conv_w"], None)
+    # the last k-1 inputs; a prompt shorter than that is padded with zeros in front
+    conv_state = xin[:, -(kk - 1):] if s >= kk - 1 else F.pad(xin, (0, 0, kk - 1 - s, 0))
+    xc = F.silu(xc)
+    dt, bmat, cmat, a = ssm_mod._project(p, xc, cfg)
+    y, h_final = ssm_mod.ssm_apply(dt, xc, bmat, cmat, a, cfg)
+    y = (y + p["D"][None, None] * xc.float()).to(h.dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"], conv_state.contiguous(), h_final
+
+
+def stack_forward(cfg: ModelConfig, layers: Dict, x: torch.Tensor):
+    """Run the layer stack in a Python loop (the reference scans it).
+
+    Returns ``(x, caches)``, the caches in the decode layout ``{"sub<i>":
+    {"conv", "ssm"}}``, each stacked on a leading ``num_groups`` axis: the
+    reference's ``collect_caches=True``, the one setting prefill uses.  The
+    cache-free forward comes with the training slice, the reference's
+    positions and cache length with attention prefill.
+    """
+    gp = cfg.layer_group
+    collected: List[Dict[str, List[torch.Tensor]]] = [{} for _ in range(gp)]
+    for g in range(cfg.num_layers // gp):
+        for i in range(gp):
+            x, cache = _layer_fwd(cfg, layer_params(layers, g * gp + i), x)
+            for name, t in cache.items():
+                collected[i].setdefault(name, []).append(t)
+    return x, {f"sub{i}": {name: torch.stack(ts) for name, ts in c.items()} for i, c in enumerate(collected)}

@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward_decode, init_caches
 from repro_torch.models.transformer import _dtype
 from repro_torch.telemetry import WALL, TickClock, get_telemetry
+from repro_torch.train.steps import _cast
 
 from . import sampler as sampler_mod
 
@@ -79,16 +80,6 @@ class ServingReport:
     def ok(self) -> bool:
         """True when no request timed out, was shed or failed."""
         return self.timed_out == 0 and self.shed == 0 and self.failed == 0
-
-
-def _cast(params, dtype: torch.dtype):
-    """Cast float32 matrices to the compute dtype (the reference's rule:
-    float32 leaves of rank > 1 are cast, vectors stay float32)."""
-    if isinstance(params, dict):
-        return {k: _cast(v, dtype) for k, v in params.items()}
-    if params.dtype == torch.float32 and params.ndim > 1:
-        return params.to(dtype)
-    return params
 
 
 class ServingEngine:
