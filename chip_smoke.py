@@ -41,7 +41,17 @@ Phases (any failure raises, and the script exits non-zero):
    through ``make_decode_step``; K9 on layer 0's own inputs; prefill against
    stepping at full width; the reduced config on the card against the CPU;
    CUDA-event times of K9 and its plain version;
-8. the ``kernels`` line, the card line and the result line.
+8. training (:func:`phase_train`): K10, the selective scan's backward,
+   against its plain version at falcon-mamba's layer shapes (D = 8192,
+   state 16) and at edge shapes, two launches bit-identical; the
+   autograd Function (K9 forward, K10 backward) against autograd through
+   the plain scan; fused against plain-scan train steps at full width (2
+   layers); falcon-mamba-7b at full width cut to 16 of 64 layers trained
+   3 steps on (1, 4096) batches through ``make_train_step`` (K10 once per
+   layer and step, K9 twice); K10 on layer 0's own operands with its
+   times, and a traced step; the reduced config on the card against the
+   CPU;
+9. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -882,6 +892,12 @@ def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
+def _copy(tree, device):
+    """A copy of a state on ``device``, also where it lies there already (a
+    train step updates its state in place)."""
+    return {k: _copy(v, device) if isinstance(v, dict) else v.to(device, copy=True) for k, v in tree.items()}
+
+
 SCAN_SHAPES = ((1, 4096), (4, 1000), (3, 129), (2, 1))  # (B, S) at the layer's D and st
 SCAN_EDGES = ((2, 77, 200, 16), (2, 77, 200, 8), (1, 50, 40, 16))  # (B, S, D, st): ragged D, both st
 SCAN_CHUNK = 128  # falcon-mamba's ssm_chunk
@@ -1159,6 +1175,328 @@ def phase_ssm_reference(device: str, arch: str) -> None:
           "caches, then 4 decode steps; greedy tokens identical")
 
 
+BWD_SHAPES = ((1, 4096), (2, 1000))  # (B, S) at the layer's D and st: the training run's and B > 1
+# (B, S, D, st): ragged D, both state widths, S = 1, S below the 32-step tile, a short last tile
+BWD_EDGES = ((2, 77, 200, 16), (2, 77, 200, 8), (1, 1, 40, 16), (1, 31, 32, 8), (3, 129, 64, 16))
+FN_SHAPE = (2, 300, 512, 16)  # the Function against autograd through the plain scan
+# K10 against its plain version, of max|want| per gradient: the kernel's exp is
+# ex2.approx (a few float32 ulps) where the plain version's is torch.exp, the
+# states and the carried gradient g sum their steps' errors over the
+# recurrence's memory, and dB, dC and dA sum over D or S terms in another
+# order.  On the reference's input distribution (dt = softplus(N(0, 1)),
+# a = -exp(N(0, 1))) the reading stays several times below 2e-5 (PERF.md), which
+# leaves room for the longer sums of other shapes.  The reference's own tests
+# hold its backward to jax.grad within 2e-4 (float32).
+BWD_RTOL = 2e-5
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 16, 4096, 3  # 16 of 64 layers: 112 GB of state for all 64
+CMP_LAYERS, CMP_SEQ = 2, 1024  # fused against plain: the "scan" backend materialises (B, S, 8192, 16)
+# the fused and "scan" backends at full width in bfloat16, of max|want| per leaf
+# of the gradient (and of the loss and grad norm): the fused scan rounds y to
+# bfloat16 (x's dtype) where the "scan" backend keeps it float32, and the
+# bfloat16 network carries that rounding (2^-9 relative) through every later
+# product
+CMP_RTOL = 3e-2
+# the reduced config (float32) on the card against the CPU, one train step:
+# float32 sums in another order, ex2.approx against torch.exp
+TRAIN_REF_TOL = 1e-4
+
+
+def bwd_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
+    """Least time of one K10 call: each of the function's inputs read once
+    and each of its outputs written once (``sizes`` = bytes of dt, x, dy,
+    B and C, a; the checkpoints every 32 steps, dh_final and the five
+    gradients float32), against 20 float32 operations per state and step
+    (5 of the recompute, 15 of the reverse pass) at the card's float32
+    rate outside the tensor cores.  ``partial_bytes`` are the per-block
+    partials of dB and dC (B, D / 32, S, st) and of dA (B, D, st) that
+    K10's reduction design writes and reads again: overhead of the design,
+    not in the bound."""
+    dt_b, x_b, dy_b, bc_b, a_b = sizes
+    n, ns = bsz * s * d, bsz * s * st
+    n_ck = bsz * -(-s // 32) * d * st
+    nbytes = (n * (dt_b + x_b + dy_b) + 2 * ns * bc_b + d * st * a_b + 4 * n_ck + 4 * bsz * d * st
+              + 4 * (2 * n + 2 * ns + d * st))
+    partial_bytes = 2 * 4 * (2 * bsz * -(-d // 32) * s * st + bsz * d * st)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 20 * n * st / SCALAR_OPS_PER_S * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes, "partial_bytes": partial_bytes}
+
+
+def _fingerprints(tree):
+    """Per leaf: its float64 sum and norm, to tell whether it moved without a copy."""
+    import torch
+
+    return [torch.stack([t.sum(dtype=torch.float64), torch.linalg.vector_norm(t, dtype=torch.float64)])
+            for t in _leaves(tree)]
+
+
+def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d: int = 8192, st: int = 16,
+                edges=BWD_EDGES, fn_shape=FN_SHAPE, layers: int = TRAIN_LAYERS, seq: int = TRAIN_SEQ,
+                steps: int = TRAIN_STEPS, cmp_layers: int = CMP_LAYERS, cmp_seq: int = CMP_SEQ,
+                seed: int = 5) -> dict:
+    """K10 and training falcon-mamba-7b on the fused scan.
+
+    1. K10 against its plain version on K9's own checkpoints: the layer's
+       shapes ``(B, S)`` in ``shapes`` at ``(d, st)`` and the ``edges``, the
+       model's dtypes (dt float32; x, B, C, a and dy bfloat16) and
+       all-float32, dh_final zero and nonzero; each gradient within
+       ``BWD_RTOL`` of its max; two launches bit-identical.
+    2. ``SsmScanFunction`` (K9 forward, K10 backward) against autograd
+       through the plain scan, on the gradients of a scalar loss of y and
+       h_final, at ``fn_shape``.
+    3. Fused against plain at full width: falcon-mamba-7b at its published
+       widths with ``cmp_layers`` layers, one ``loss_and_grads`` and one
+       ``make_train_step`` step with ``ssm_backend="fused"`` and with
+       ``"scan"`` from one state and batch ``(1, cmp_seq)``: the loss, the
+       grad norm and every leaf's gradient within ``CMP_RTOL``.
+    4. The main path, driven once with every count at 0: falcon-mamba-7b at
+       full width cut to ``layers`` layers, float32 masters from seed 0,
+       ``steps`` steps of ``make_train_step`` from step 1 on ``(1, seq)``
+       batches of ``SyntheticLMPipeline`` (seed 0).  The loss finite every
+       step; beforehand, every leaf's gradient of the first batch finite and
+       nonzero; afterwards every leaf moved; K10 launched once per layer and
+       step, K9 twice (the forward, and its recompute under the per-layer
+       remat).  Then K10 on layer 0's own operands against its plain
+       version, its times, and a ``launch/profile.py`` trace of one more step.
+    5. The reduced config (float32, fused) on this device against the CPU:
+       one train step from the same state, loss and new parameters within
+       ``TRAIN_REF_TOL``.
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the wrappers run their plain versions, the full-width configs are the
+    reduced one, nothing is launched, timed or traced, and every check
+    still runs.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.smoke import leaf_report
+    from repro_torch.train.steps import loss_and_grads
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    max_err, max_rel, cases = 0.0, 0.0, 0
+    chunk = ks.GRAD_CHUNK
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def bwd_compare(args, dy, dh, what):
+        """K10 on one case against its plain version; two launches bit-identical."""
+        nonlocal max_err, max_rel, cases
+        before = ks.ssm_scan_bwd.launches
+        got = ks.ssm_scan_bwd(*args, dy, dh, chunk=chunk)
+        again = ks.ssm_scan_bwd(*args, dy, dh, chunk=chunk)
+        check(ks.ssm_scan_bwd.launches - before == 2 * int(on_card), f"ssm_scan_bwd {what}: launches")
+        check(all(torch.equal(g, h) for g, h in zip(got, again)), f"ssm_scan_bwd {what}: two launches differ")
+        want = ks.ssm_scan_bwd_ref(*args, dy, dh, chunk=chunk)
+        for part, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got, want):
+            err = scan_err(g, w, f"ssm_scan_bwd {what} {part}", BWD_RTOL, 0.0)
+            max_err, max_rel = max(max_err, err), max(max_rel, err / max(float(w.abs().max()), 1e-30))
+        cases += 1
+
+    # 1. K10 against its plain version, on K9's own checkpoints
+    for bsz, s, d_, st_ in [(b, s_, d, st) for b, s_ in shapes] + list(edges):
+        for act in (torch.bfloat16, torch.float32):
+            args = scan_inputs(bsz, s, d_, st_, act, gen, device)
+            y, h, hstart = ks.ssm_scan(*args, chunk=chunk, checkpoints=True)
+            dy = torch.randn(y.shape, generator=gen, device=device).to(act)
+            for dh_zero in (True, False):
+                dh = torch.zeros_like(h) if dh_zero else torch.randn(h.shape, generator=gen, device=device)
+                bwd_compare(args + (hstart,), dy, dh, f"({bsz}, {s}, {d_}, {st_}) x {str(act)[6:]} "
+                            f"dh_final={'0' if dh_zero else 'N(0, 1)'}")
+    print(f"train: {cases} K10 calls against the plain version (ddt, dx, dB, dC, dA) within {BWD_RTOL:g} * "
+          f"max|want|, max abs err {max_err:.3g}, largest {max_rel:.3g} of max; two launches bit-identical in each")
+
+    # 2. the Function against autograd through the plain scan
+    fn_err = 0.0
+    for act in (torch.bfloat16, torch.float32):
+        args = scan_inputs(*fn_shape, act, gen, device)
+        wy = torch.randn(fn_shape[:3], generator=gen, device=device)
+        wh = torch.randn((fn_shape[0], fn_shape[2], fn_shape[3]), generator=gen, device=device)
+        grads = []
+        for scan in (ks.ssm_scan, ks.ssm_scan_ref):
+            ops = [t.clone().requires_grad_() for t in args]
+            before = ks.ssm_scan_bwd.launches
+            y, h = scan(*ops, chunk=chunk)
+            loss = (y.float() * wy).sum() + (h * wh).sum()
+            grads.append(torch.autograd.grad(loss, ops))
+            want_k10 = int(on_card and scan is ks.ssm_scan)
+            check(ks.ssm_scan_bwd.launches - before == want_k10, f"the Function launched K10 "
+                  f"{ks.ssm_scan_bwd.launches - before} times, want {want_k10}")
+        for name, g, w in zip(("dt", "x", "B", "C", "a"), *grads):
+            err = scan_err(g, w, f"SsmScanFunction {fn_shape} x {str(act)[6:]} d{name}", BWD_RTOL, 0.0)
+            fn_err = max(fn_err, err / max(float(w.abs().max()), 1e-30))
+    print(f"train: SsmScanFunction {fn_shape} against autograd through the plain scan, bfloat16 and float32 "
+          f"operands: every gradient within {BWD_RTOL:g} of max (+ 1 ulp for bfloat16), largest {fn_err:.3g} of max")
+
+    # 3. fused against plain at full width: one state, one batch
+    base = get_config("falcon-mamba-7b")
+    full = base.reduced() if reduce else base
+    tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0)
+    cmp = {b: dataclasses.replace(full, num_layers=cmp_layers, ssm_backend=b) for b in ("fused", "scan")}
+    state = init_train_state(cmp["fused"], tcfg, seed=0, device=device)
+    state["step"].fill_(1)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in SyntheticLMPipeline(full, 1, cmp_seq, PipelineConfig(seed=0)).batch_at(0).items()}
+    out = {b: loss_and_grads(c, tcfg, state["params"], batch) for b, c in cmp.items()}
+    (lf, _, gf), (ls, _, gs) = out["fused"], out["scan"]
+    cmp_err = {"loss": abs(float(lf) - float(ls)) / abs(float(ls)),
+               "grad_norm": abs(float(global_norm(gf)) - float(global_norm(gs))) / float(global_norm(gs))}
+    for (name, _, _), a, b in zip(leaf_report(gf), _leaves(gf), _leaves(gs)):
+        cmp_err[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    del out, gf, gs
+    metrics = {}
+    for b, c in cmp.items():
+        st_b = _copy(state, device)
+        metrics[b] = make_train_step(c, tcfg)(st_b, batch)[1]
+        del st_b
+    for key in ("loss", "grad_norm"):
+        cmp_err[f"step {key}"] = abs(float(metrics["fused"][key]) - float(metrics["scan"][key])) / abs(
+            float(metrics["scan"][key]))
+    worst = max(cmp_err, key=cmp_err.get)
+    check(cmp_err[worst] <= CMP_RTOL, f"fused against scan at full width: {worst} differs by {cmp_err[worst]:.3g} of max")
+    print(f"train: fused against scan, {full.name} {cmp_layers} layers (1, {cmp_seq}): loss {float(lf):.5f} against "
+          f"{float(ls):.5f}, loss, grad norm and {len(cmp_err) - 4} leaves' gradients within {CMP_RTOL:g} of max "
+          f"(largest: {worst} {cmp_err[worst]:.3g})")
+    del state, batch, metrics
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 4. the main path: training at full width, driven once with every count at 0
+    cfg = dataclasses.replace(full, num_layers=layers, ssm_backend="fused")
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, seed=0, device=device)
+    state["step"].fill_(1)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    print(f"train: {cfg.name} at full width cut to {layers} of {base.num_layers} layers (d={cfg.d_model}, "
+          f"d_inner={cfg.d_inner}, state {cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, fused scan): "
+          f"{n_params / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB of float32 masters and moments from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s")
+    pipe = SyntheticLMPipeline(cfg, 1, seq, PipelineConfig(seed=0))
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in pipe.batch_at(i).items()}
+               for i in range(1, steps + 1)]
+    _, _, grads = loss_and_grads(cfg, tcfg, state["params"], batches[0])
+    bad = [(n, f, z) for n, f, z in leaf_report(grads) if not (f and z)]
+    check(not bad, f"gradient leaves not finite or zero: {bad}")
+    n_leaves = len(leaf_report(grads))
+    del grads
+    before = _fingerprints(state["params"])
+    step_fn = make_train_step(cfg, tcfg)
+    layer0 = []
+    real_bwd = ks._backward
+
+    def keep_layer0(saved, dy, dh):  # the last K10 of a backward is layer 0's: its operands, for the checks below
+        layer0[:] = [tuple(t.detach() for t in saved), dy.contiguous(), dh.float().contiguous()]
+        return real_bwd(saved, dy, dh)
+
+    losses, step_ms = [], []
+    ks._backward = keep_layer0
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            state, m = step_fn(state, batch)
+            if on_card:
+                ev[1].record()
+                ev[1].synchronize()
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+                  f"step {i + 1}: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+            if i == 0:
+                ks._backward = real_bwd  # layer 0's operands of the first step are kept
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in WRAPPERS}
+    finally:
+        ks._backward = real_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    want = dict.fromkeys(launches, 0)
+    want.update(ssm_scan=2 * layers * steps, ssm_scan_bwd=layers * steps)
+    check(launches == (want if on_card else dict.fromkeys(want, 0)), f"train path launched {launches}, want {want}")
+    after = _fingerprints(state["params"])
+    still = [name for (name, _, _), a, b in zip(leaf_report(state["params"]), before, after) if torch.equal(a, b)]
+    check(not still, f"parameters did not move: {still}")
+    check(int(state["step"]) == 1 + steps, f"step counter {int(state['step'])}")
+    ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None
+    print(f"train: {steps} steps of (1, {seq}) from step 1: losses {[round(x, 5) for x in losses]}; every leaf's "
+          f"gradient finite and nonzero ({n_leaves} leaves), every leaf moved; K10 launched "
+          f"{launches['ssm_scan_bwd']} times ({layers} per step), K9 {launches['ssm_scan']} ({2 * layers} per step: "
+          f"the forward and its recompute under the per-layer remat); {seconds:.2f} s in all"
+          + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}, {ms:.3f} ms per step after the first, "
+             f"{seq / ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} GB" if on_card else
+             "; times and peak memory not measured (CPU)"))
+
+    # K10 on layer 0's own operands
+    (dt0, x0, b0, c0, a0, hstart0), dy0, dh0 = layer0
+    args0 = (dt0, x0, b0, c0, a0, hstart0)
+    check(tuple(x0.shape) == (1, seq, cfg.d_inner) and hstart0.shape[1] == -(-seq // chunk),
+          f"layer 0's K10 operands {tuple(x0.shape)}, checkpoints {tuple(hstart0.shape)}")
+    bwd_compare(args0, dy0, dh0, f"layer 0 of the train step {tuple(x0.shape)}")
+    print(f"train: K10 on layer 0's own operands against its plain version: max abs err {max_err:.3g} over all "
+          f"{cases} calls, largest {max_rel:.3g} of max")
+    res = {"launches": launches["ssm_scan_bwd"], "max_abs_err": max_err, "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "library_ms": None, "step_ms": ms, "peak_gb": peak_gb}
+    if on_card:
+        sizes = tuple(t.element_size() for t in (dt0, x0, dy0, b0, a0))
+        bound = bwd_bound(1, seq, cfg.d_inner, cfg.ssm_state, sizes)
+        res.update(ms=time_ms(lambda: ks.ssm_scan_bwd(*args0, dy0, dh0, chunk=chunk)),
+                   plain_ms=time_ms(lambda: ks.ssm_scan_bwd_ref(*args0, dy0, dh0, chunk=chunk), iters=1),
+                   bound_ms=bound["ms"], bound_by=bound["by"])
+        print(f"  K10 {tuple(x0.shape)} st {cfg.ssm_state} (dt {dt0.dtype}, x {x0.dtype}, dy {dy0.dtype}): "
+              f"kernel_ms {res['ms']:.5f}  plain_ms {res['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} "
+              f"({bound['by']}; bytes {bound['bytes_ms']:.6f}, float32 ops {bound['ops_ms']:.6f}; the function's "
+              f"{bound['bytes'] / 1e6:.1f} MB, and the design's partials of dB, dC and dA another "
+              f"{bound['partial_bytes'] / 1e6:.1f} MB written and read, not in the bound); K10 in all "
+              f"{res['ms'] * layers:.2f} ms of a {ms:.1f} ms step (CUDA events)")
+        from repro_torch.launch.profile import profile_train_step, report_train
+
+        del layer0, args0, dt0, x0, b0, c0, a0, hstart0, dy0, dh0
+        prof = profile_train_step(cfg, tcfg, state, {k: v for k, v in batches[0].items()})
+        report_train(prof)
+        res.update(k10_share=prof["k10_share"], busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"])
+    del state, batches
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 5. the reduced config on this device against the CPU: one train step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rcfg = dataclasses.replace(base.reduced(), ssm_backend="fused")
+    cpu = init_train_state(rcfg, tcfg, seed=0, device="cpu")
+    cpu["step"].fill_(1)
+    dev = _copy(cpu, device)
+    rbatch = SyntheticLMPipeline(rcfg, 2, 36, PipelineConfig(seed=0)).batch_at(0)
+    cpu, mc = make_train_step(rcfg, tcfg)(cpu, rbatch)
+    dev, md = make_train_step(rcfg, tcfg)(dev, rbatch)
+    check(abs(float(md["loss"]) - float(mc["loss"])) <= TRAIN_REF_TOL * abs(float(mc["loss"])),
+          f"reduced train step loss {float(md['loss'])} against {float(mc['loss'])}")
+    for (name, _, _), g, c in zip(leaf_report(cpu["params"]), _leaves(dev["params"]), _leaves(cpu["params"])):
+        check(torch.allclose(g.cpu(), c, atol=TRAIN_REF_TOL, rtol=TRAIN_REF_TOL), f"reduced train step {name} differs: "
+              f"{float((g.cpu() - c).abs().max())}")
+    print(f"train reference: reduced falcon-mamba (fused scan) on {device} matches the CPU within "
+          f"{TRAIN_REF_TOL:g}: one train step's loss and new parameters")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1195,6 +1533,7 @@ def main() -> int:
     serving = phase_serving()
     phase_reference()
     ssm = phase_ssm()
+    train = phase_train()
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -1212,6 +1551,8 @@ def main() -> int:
                                    ("merge_batched_ragged", 721), ("merge_kv_batched_ragged", 749))]
     kernels.append(dict(entry("ssm_scan", "ssm_scan.cu", 79, ssm["launches"], ssm),
                         replaces="src/repro/kernels/ssm_scan.py:79"))
+    kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
+                        replaces="src/repro/kernels/ssm_scan.py:157"))
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
@@ -1225,7 +1566,12 @@ def main() -> int:
           "those of the batched path's run (merge_batched_ragged: 1 direct call and 3 rounds of each of 3 ops.merge_k); "
           "ssm_scan's are one call on layer 0's own inputs of the falcon-mamba-7b prefill at (1, 32768, 8192, 16) "
           "(dt float32, x, B, C and a bfloat16), library_ms null (no PyTorch call computes the recurrence), its "
-          "launches those of that prefill (one per layer)")
+          "launches those of that prefill (one per layer); ssm_scan_bwd's are one call (both of its passes) on "
+          "layer 0's own operands of the falcon-mamba-7b train step at (1, 4096, 8192, 16) (dt float32; x, B, C, "
+          "a and dy bfloat16; checkpoints every 32 steps), bound_ms of the function's own inputs and outputs (the "
+          "partials of dB, dC and dA that K10's design adds are printed apart), "
+          "library_ms null (no PyTorch call computes the recurrence's gradient), its launches those of the 3 "
+          "train steps at 16 layers (one per layer and step)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-from .base import ModelConfig
+from .base import SHAPES, SHAPES_BY_NAME, ModelConfig, ShapeConfig, TrainConfig
 from .registry import ALIASES, REGISTRY, get_config, list_archs
 
-__all__ = ["ModelConfig", "REGISTRY", "ALIASES", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "REGISTRY", "ALIASES", "SHAPES", "SHAPES_BY_NAME", "ShapeConfig", "TrainConfig",
+           "get_config", "list_archs"]

@@ -5,12 +5,15 @@ field set and the two derived counts (``n_params``, ``n_active_params``)
 match the JAX package's ``repro.configs.base`` field for field, so a
 config built here describes the same model there.  ``reduced()`` returns
 a tiny same-family config for CPU tests (same code paths, small dims).
+``ShapeConfig``/``SHAPES`` (the reference's named batch shapes) and
+``TrainConfig`` (the optimizer and run knobs) are copies too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 # Families
 DENSE = "dense"
@@ -47,8 +50,8 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 128  # chunked-scan block (materialization/compile trade)
     # "scan" (chunked scan, plain PyTorch) | "fused" (the hand-written
-    # selective-scan kernel, repro_torch.kernels.ssm_scan; forward only:
-    # its backward comes with the training slice)
+    # selective-scan kernels, repro_torch.kernels.ssm_scan: K9 forward, K10
+    # backward)
     ssm_backend: str = "scan"
 
     # --- attention pattern ---
@@ -167,3 +170,45 @@ class ModelConfig:
             num_prefix_tokens=8 if self.num_prefix_tokens else 0,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / runtime knobs (the run config half of the system)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    microbatch: int = 0  # 0 = no gradient accumulation
+    # gradient compression for the cross-pod all-reduce; the port takes
+    # "none" only until the parallel slice ports it
+    grad_compression: str = "none"  # none | topk | int8
+    compression_topk: float = 0.01
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    seed: int = 0

@@ -3,8 +3,8 @@
 Importing this package builds nothing; ``nvcc`` runs at the first launch
 on a CUDA tensor (see :mod:`repro_torch.kernels._build`).  ``WRAPPERS``
 lists every kernel wrapper (the merge-path kernels K1-K8 and the
-selective scan K9); :func:`reset_launches` sets all their launch counts
-to 0.
+selective scan's forward K9 and backward K10); :func:`reset_launches`
+sets all their launch counts to 0.
 """
 
 from . import merge_path, ops, ssm_scan
@@ -28,7 +28,7 @@ from .merge_path import (
     sort_round_kv_ref,
     sort_round_ref,
 )
-WRAPPERS = merge_path.WRAPPERS + (ssm_scan.ssm_scan,)
+WRAPPERS = merge_path.WRAPPERS + (ssm_scan.ssm_scan, ssm_scan.ssm_scan_bwd)
 
 
 def reset_launches() -> None:

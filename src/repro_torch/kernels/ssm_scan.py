@@ -1,4 +1,4 @@
-"""The fused selective-scan forward written by hand for Hopper (K9), with its plain version.
+"""The fused selective scan written by hand for Hopper, forward (K9) and backward (K10).
 
 The counterpart of the reference's ``repro/kernels/ssm_scan.py``:
 
@@ -6,16 +6,26 @@ The counterpart of the reference's ``repro/kernels/ssm_scan.py``:
   recurrence of a Mamba-1 block with the state on chip,
   ``csrc/ssm_scan.cu``.  It takes any ``S`` (no padding to a chunk) and
   writes the state at every chunk start when asked (``checkpoints``), as
-  the reference's forward does for its backward;
-* :func:`ssm_scan_ref`: the plain PyTorch version, a loop over the steps
-  in float32 with the kernel's order of casts;
-* :func:`fused_hbm_bytes` and :func:`xla_scan_hbm_bytes`: the reference's
-  byte models.
+  the reference's forward does for its backward.  When a gradient is
+  needed it runs through :class:`SsmScanFunction`;
+* :func:`ssm_scan_bwd` (K10, ``_bwd_call``): the chunk-recompute
+  backward, ``csrc/ssm_scan_bwd.cu``: the five gradients from the
+  forward's inputs, its checkpoints and the cotangents of ``y`` and
+  ``h_final``;
+* :class:`SsmScanFunction`: the ``torch.autograd.Function`` that joins
+  them, the counterpart of the reference's ``custom_vjp``.  Its forward
+  runs K9 with checkpoints every :data:`GRAD_CHUNK` steps, its backward
+  K10;
+* :func:`ssm_scan_ref` and :func:`ssm_scan_bwd_ref`: the plain PyTorch
+  versions, loops over the steps in float32 with the kernels' order of
+  casts;
+* :func:`fused_hbm_bytes`, :func:`bwd_hbm_bytes` and
+  :func:`xla_scan_hbm_bytes`: the reference's byte models.
 
-The wrapper launches the kernel on a CUDA tensor (and counts the launch in
-``ssm_scan.launches``) and raises if the launch fails; on a CPU tensor it
-runs :func:`ssm_scan_ref`.  There is no fallback from one to the other.
-The chunk-recompute backward (K10) comes with the training slice.
+Each wrapper launches its kernel on a CUDA tensor (and counts the launch
+in ``ssm_scan.launches`` or ``ssm_scan_bwd.launches``) and raises if the
+launch fails; on a CPU tensor it runs its plain version.  There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -32,8 +42,13 @@ from . import _build
 DTYPES = (torch.float32, torch.bfloat16)
 STATES = (8, 16)  # the kernel's state widths: those of the configs with a fused scan
 TILE = 32  # the kernel's steps per tile: with checkpoints, chunk is a multiple of it
+# The checkpoint interval of SsmScanFunction: K10 recomputes one 32-step tile
+# from each checkpoint, in registers (csrc/ssm_scan_bwd.cu).  It changes the
+# memory held for the backward (B * ceil(S / 32) * D * st float32: 67 MB at
+# (1, 4096, 8192, 16)) and the recompute, not the numbers.
+GRAD_CHUNK = TILE
 # which operands are bfloat16, as csrc/ssm_scan.cu reads them
-_FLAG_DT, _FLAG_X, _FLAG_BC, _FLAG_A = 1, 2, 4, 8
+_FLAG_DT, _FLAG_X, _FLAG_BC, _FLAG_A, _FLAG_DY = 1, 2, 4, 8, 16
 
 
 @functools.cache
@@ -133,8 +148,24 @@ def ssm_scan(
     multiple of 4 and operands that start 16-byte aligned (it reads 4
     channels at a time), and with ``checkpoints`` a ``chunk`` that is a
     multiple of ``TILE``.  A CPU tensor takes :func:`ssm_scan_ref`.
+
+    When grad mode is on and an operand requires a gradient, the call goes
+    through :class:`SsmScanFunction`: K9 with checkpoints every
+    :data:`GRAD_CHUNK` steps (``chunk`` is then unused), and K10 in the
+    backward.  Asking for ``checkpoints`` then raises: the Function keeps
+    its own, and the checkpoints returned would carry no gradient.
     """
     _check(dt, x, bmat, cmat, a, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a)):
+        if checkpoints:
+            raise ValueError("ssm_scan: checkpoints=True carries no gradient; call it without checkpoints "
+                             "(the gradient's own are kept every GRAD_CHUNK steps) or under torch.no_grad()")
+        return SsmScanFunction.apply(dt, x, bmat, cmat, a)
+    return _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
+
+
+def _forward(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool):
+    """One K9 launch on a CUDA tensor, :func:`ssm_scan_ref` on a CPU one."""
     if x.device.type == "cpu":
         return ssm_scan_ref(dt, x, bmat, cmat, a, chunk=chunk, checkpoints=checkpoints)
     bsz, s, d = x.shape
@@ -168,11 +199,181 @@ def ssm_scan(
 ssm_scan.launches = 0
 
 
+@functools.cache
+def _bwd_symbol():
+    lib = _build.load("ssm_scan_bwd")
+    fn = lib.ssm_scan_bwd
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P] * 16 + [I64, I64, I, I, I, P]
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib
+
+
+def _check_bwd(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk: int) -> None:
+    _check(dt, x, bmat, cmat, a, chunk)
+    bsz, s, d = x.shape
+    st = bmat.shape[2]
+    want = {"hstart": (hstart, (bsz, -(-s // chunk), d, st)), "dh_final": (dh_final, (bsz, d, st))}
+    for name, (t, shape) in want.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"ssm_scan_bwd: {name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if dy.dtype not in DTYPES or dy.shape != x.shape:
+        raise ValueError(f"ssm_scan_bwd: dy must be float32 or bfloat16 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}")
+    for name, t in (("hstart", hstart), ("dy", dy), ("dh_final", dh_final)):
+        if t.device != x.device:
+            raise ValueError(f"ssm_scan_bwd: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssm_scan_bwd: {name} must be contiguous")
+
+
+def ssm_scan_bwd_ref(dt, x, bmat, cmat, a, hstart, dy, dh_final, *, chunk: int):
+    """Plain version of K10: ``(ddt, dx, dB, dC, dA)`` in float32.
+
+    Per chunk, last to first: the chunk's states recomputed from its
+    checkpoint ``hstart[:, c]`` as :func:`ssm_scan_ref` runs them, then
+    the reverse recurrence of the reference's ``_bwd_kernel`` one step at
+    a time, with ``g = dL/dh`` carried from ``dh_final`` backwards.
+    """
+    bsz, s, d = x.shape
+    dt32, x32, b32, c32, a32, dy32 = (t.float() for t in (dt, x, bmat, cmat, a, dy))
+    dtx = dt32 * x32
+    dev = x.device
+    ddt = torch.empty((bsz, s, d), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(ddt)
+    db = torch.empty(tuple(bmat.shape), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(db)
+    da = torch.zeros(tuple(a.shape), dtype=torch.float32, device=dev)
+    g = dh_final.float().clone()
+    for c in reversed(range(-(-s // chunk))):
+        t0, t1 = c * chunk, min(s, (c + 1) * chunk)
+        hs = [hstart[:, c]]
+        for t in range(t0, t1):
+            decay = torch.exp(dt32[:, t, :, None] * a32)
+            hs.append(decay * hs[-1] + dtx[:, t, :, None] * b32[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            h_prev, h_t = hs[t - t0], hs[t - t0 + 1]
+            dy_t = dy32[:, t, :, None]
+            dc[:, t] = (h_t * dy_t).sum(1)
+            g = g + dy_t * c32[:, t, None, :]
+            decay = torch.exp(dt32[:, t, :, None] * a32)
+            gdec = g * h_prev * decay  # dL/d(dt_t a), through exp
+            s_gb = (g * b32[:, t, None, :]).sum(-1)  # dL/d(dt_t x_t)
+            ddt[:, t] = (gdec * a32).sum(-1) + x32[:, t] * s_gb
+            dx[:, t] = dt32[:, t] * s_gb
+            db[:, t] = (g * dtx[:, t, :, None]).sum(1)
+            da += (dt32[:, t, :, None] * gdec).sum(0)
+            g = g * decay
+    return ddt, dx, db, dc, da
+
+
+def ssm_scan_bwd(
+    dt: torch.Tensor,  # (B, S, D), the forward's operands
+    x: torch.Tensor,
+    bmat: torch.Tensor,  # (B, S, st)
+    cmat: torch.Tensor,
+    a: torch.Tensor,  # (D, st)
+    hstart: torch.Tensor,  # (B, ceil(S / chunk), D, st) float32: the forward's checkpoints
+    dy: torch.Tensor,  # (B, S, D), float32 or bfloat16: the cotangent of y
+    dh_final: torch.Tensor,  # (B, D, st) float32: the cotangent of h_final
+    *,
+    chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """Chunk-recompute backward (K10): ``(ddt, dx (B, S, D), dB, dC (B, S,
+    st), dA (D, st))``, all float32, as the reference's ``_bwd_call``.
+
+    A CUDA tensor launches the kernel (and counts one in
+    ``ssm_scan_bwd.launches``); it takes the checkpoints K9 writes for
+    ``chunk == TILE`` (one per 32-step tile), ``st`` in ``STATES``, ``D`` a
+    multiple of 4 and operands that start 16-byte aligned.  Two launches on
+    the same operands give the same bits (no atomics).  A CPU tensor takes
+    :func:`ssm_scan_bwd_ref`.
+    """
+    _check_bwd(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk)
+    if x.device.type == "cpu":
+        return ssm_scan_bwd_ref(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk=chunk)
+    bsz, s, d = x.shape
+    st = bmat.shape[-1]
+    if st not in STATES:
+        raise ValueError(f"ssm_scan_bwd: the kernel takes a state width in {STATES}, got {st}")
+    if d % 4:
+        raise ValueError(f"ssm_scan_bwd: the kernel takes D a multiple of 4, got {d}")
+    if chunk != TILE:
+        raise ValueError(f"ssm_scan_bwd: the kernel takes the checkpoints of chunk {TILE}, got {chunk}")
+    if any(t.data_ptr() % 16 for t in (dt, x, bmat, cmat, a, hstart, dy, dh_final)):
+        raise ValueError("ssm_scan_bwd: the kernel takes operands that start 16-byte aligned")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ddt, dx = torch.empty((bsz, s, d), **f32), torch.empty((bsz, s, d), **f32)
+    db, dc = torch.empty((bsz, s, st), **f32), torch.empty((bsz, s, st), **f32)
+    da = torch.empty((d, st), **f32)
+    n_dtiles = -(-d // 32)
+    part_b, part_c = torch.empty((bsz, n_dtiles, s, st), **f32), torch.empty((bsz, n_dtiles, s, st), **f32)
+    part_a = torch.empty((bsz, d, st), **f32)
+    bf16 = torch.bfloat16
+    flags = ((_FLAG_DT if dt.dtype == bf16 else 0) | (_FLAG_X if x.dtype == bf16 else 0)
+             | (_FLAG_BC if bmat.dtype == bf16 else 0) | (_FLAG_A if a.dtype == bf16 else 0)
+             | (_FLAG_DY if dy.dtype == bf16 else 0))
+    fn, lib = _bwd_symbol()
+    ptrs = [t.data_ptr() for t in (dt, x, bmat, cmat, a, hstart, dy, dh_final, ddt, dx, db, dc, da,
+                                   part_b, part_c, part_a)]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, bsz, s, d, st, flags, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssm_scan_bwd launch failed: {lib.repro_cuda_error_string(err).decode()} (cudaError {err})")
+    ssm_scan_bwd.launches += 1
+    return ddt, dx, db, dc, da
+
+
+ssm_scan_bwd.launches = 0
+
+
+class SsmScanFunction(torch.autograd.Function):
+    """``(y, h_final) = ssm_scan(dt, x, bmat, cmat, a)`` with K10 as its
+    backward: the counterpart of the reference's ``custom_vjp``.
+
+    The forward runs K9 with checkpoints every :data:`GRAD_CHUNK` steps and
+    keeps them with the operands; the backward runs K10 and casts each
+    gradient to its operand's dtype, as ``_ssm_scan_bwd`` does.  An unused
+    output's cotangent arrives as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, dt, x, bmat, cmat, a):
+        y, h_final, hstart = _forward(dt, x, bmat, cmat, a, GRAD_CHUNK, True)
+        ctx.save_for_backward(dt, x, bmat, cmat, a, hstart)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        return _backward(ctx.saved_tensors, dy, dh_final)
+
+
+def _backward(saved, dy, dh_final):
+    """:class:`SsmScanFunction`'s backward on its saved ``(dt, x, bmat, cmat,
+    a, hstart)``: K10, each gradient cast to its operand's dtype."""
+    dt, x, bmat, cmat, a, hstart = saved
+    grads = ssm_scan_bwd(dt, x, bmat, cmat, a, hstart, dy.contiguous(), dh_final.float().contiguous(),
+                         chunk=GRAD_CHUNK)
+    return tuple(gr.to(op.dtype) for gr, op in zip(grads, (dt, x, bmat, cmat, a)))
+
+
 def fused_hbm_bytes(bsz: int, s: int, d: int, st: int, elem: int = 2) -> int:
     """The reference's model of the fused kernel's device-memory traffic:
     dt, x and y (B, S, D) and B, C (B, S, st) at ``elem`` bytes, h_final
     in float32."""
     return elem * (3 * bsz * s * d + 2 * bsz * s * st) + 4 * bsz * d * st
+
+
+def bwd_hbm_bytes(bsz: int, s: int, d: int, st: int, chunk: int, elem: int = 2) -> int:
+    """The reference's model of the recompute backward's device-memory
+    traffic: the forward's inputs and dy at ``elem`` bytes, the float32
+    checkpoints in, the five float32 gradients out."""
+    fwd_in = elem * (3 * bsz * s * d + 2 * bsz * s * st)
+    ckpt = 4 * bsz * (s // max(1, chunk)) * d * st
+    grads_out = 4 * (2 * bsz * s * d + 2 * bsz * s * st + d * st)
+    return fwd_in + ckpt + grads_out
 
 
 def xla_scan_hbm_bytes(bsz: int, s: int, d: int, st: int, elem: int = 4) -> int:

@@ -1,4 +1,4 @@
-"""Where a token's time goes: decode steps, samples and a prefill, traced.
+"""Where the time goes: decode steps, samples, a prefill and a train step, traced.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 
@@ -8,13 +8,25 @@ decode step and one top-k sample of one vocab row through the K4 path.
 Then for full-width falcon-mamba-7b (fused scan, random weights), at the
 shapes of ``chip_smoke.py``'s SSM phase: one ``make_prefill_step`` of a
 (1, 32768) prompt (64 K9 launches) and one ``make_decode_step`` with its
-top-k sample.  It prints, per phase:
+top-k sample.  Last, one ``make_train_step`` of falcon-mamba-7b at its
+published widths cut to 16 of 64 layers (fused scan, float32 masters from
+seed 0) on a (1, 4096) batch of ``SyntheticLMPipeline``, the shapes of
+``chip_smoke.py``'s training phase.
+It prints, per phase:
 
 * wall ms per call (host clock, ended by ``torch.cuda.synchronize()``);
 * device busy ms per call: the sum of CUDA kernel and copy times that
   ``torch.profiler`` records, and the idle share ``1 - busy / wall``;
 * host us per launch: wall time over the number of device activities;
-* the top device activities by total time.
+* the top device activities by total time;
+* for the train step, the share of the device time spent in K10
+  (``ssm_scan_bwd``) and in K9 (``ssm_scan_kernel``), the device time by
+  kind of kernel, and the backward's device time by the autograd node
+  that launched it: the profiler's own ``autograd::engine::evaluate_function``
+  ranges, each holding its node's kernels, the sums into the gradients it
+  feeds, and the forward that remat recomputes where the node unpacks a
+  dropped activation.  What lies outside them is the forward and the
+  optimizer.
 
 Where the profiler records no device time, it says "not measured".
 """
@@ -26,16 +38,18 @@ import dataclasses
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
 from repro_torch.models import forward_decode, init_caches, init_params
 from repro_torch.models.transformer import _dtype
 from repro_torch.serving import topk_sample
 from repro_torch.telemetry import WALL
-from repro_torch.train import make_decode_step, make_prefill_step
+from repro_torch.train import init_train_state, make_decode_step, make_prefill_step, make_train_step
 from repro_torch.train.steps import _cast
 
 ARCH, BATCH, MAX_SEQ, ITERS = "tinyllama-1.1b", 2, 64, 5
 SSM_ARCH, SSM_PROMPT = "falcon-mamba-7b", 32768
+TRAIN_LAYERS, TRAIN_SEQ = 16, 4096  # 16 of 64 layers: the float32 masters and moments of all 64 need 112 GB
 
 
 def _trace(fn, iters: int) -> dict:
@@ -56,12 +70,22 @@ def _trace(fn, iters: int) -> dict:
     top: dict = {}
     for e in events:
         top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
+    nodes: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(_NODE):
+            name = e.name[len(_NODE):]
+            nodes[name] = nodes.get(name, 0.0) + e.device_time_total / 1e3 / iters
     return {
         "wall_ms": wall_ms,
         "busy_ms": busy_ms if events else None,
         "launches": len(events) / iters,
         "top": sorted(top.items(), key=lambda kv: -kv[1])[:6],
+        "by_name": top,
+        "by_node": nodes,
     }
+
+
+_NODE = "autograd::engine::evaluate_function: "
 
 
 def _report(name: str, r: dict) -> None:
@@ -73,6 +97,70 @@ def _report(name: str, r: dict) -> None:
           f"host {r['wall_ms'] * 1e3 / max(1.0, r['launches']):.1f} us per activity")
     for kname, ms in r["top"]:
         print(f"    {ms:9.4f} ms  {kname[:110]}")
+
+
+def profile_train_step(cfg, tcfg: TrainConfig, state: dict, batch: dict) -> dict:
+    """Trace one ``make_train_step`` step on ``state`` (updated in place:
+    the warm-up and timed steps step it on) and ``batch``: the report of
+    :func:`_trace`, with the device ms of K10 and K9 and their shares of
+    the busy time (None where the profiler recorded no device time)."""
+    step_fn = make_train_step(cfg, tcfg)
+    holder = {"state": state}
+
+    def step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    r = _trace(step, 1)
+    for key, pattern in (("k10", "ssm_scan_bwd"), ("k9", "ssm_scan_kernel")):
+        ms = sum(v for k, v in r["by_name"].items() if pattern in k)
+        r[f"{key}_ms"] = ms if r["busy_ms"] else None
+        r[f"{key}_share"] = ms / r["busy_ms"] if r["busy_ms"] else None
+    return r
+
+
+# device activities by kind, matched on their names in this order (the first match wins)
+KINDS = (
+    ("K10", ("ssm_scan_bwd",)),
+    ("K9", ("ssm_scan_kernel",)),
+    ("matrix products", ("gemm", "nvjet", "cutlass", "sm90_")),
+    ("copies", ("direct_copy", "Memcpy", "Memset")),
+    ("reductions", ("reduce_kernel", "softmax", "logsumexp")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def by_kind(by_name: dict) -> dict:
+    """Device ms per kind of activity (``KINDS``; the rest under "other")."""
+    out = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
+    for name, ms in by_name.items():
+        kind = next((k for k, pats in KINDS if any(p in name for p in pats)), "other")
+        out[kind] += ms
+    return out
+
+
+def report_train(r: dict) -> None:
+    _report("train step", r)
+    if r["busy_ms"] is None:
+        print("    K10 and K9 shares: not measured")
+        return
+    print(f"    K10 (ssm_scan_bwd, both passes) {r['k10_ms']:.3f} ms = {r['k10_share']:.3f} of the device time; "
+          f"K9 (ssm_scan_kernel) {r['k9_ms']:.3f} ms = {r['k9_share']:.3f}")
+    print("    by kind: " + ", ".join(f"{k} {ms:.3f} ms ({ms / r['busy_ms']:.3f})"
+                                       for k, ms in by_kind(r["by_name"]).items()))
+    bwd = sum(r["by_node"].values())
+    print(f"    backward nodes (remat's recompute included) {bwd:.3f} ms, the rest (forward, optimizer) "
+          f"{r['busy_ms'] - bwd:.3f} ms; top nodes: " + ", ".join(
+              f"{k} {ms:.3f} ms" for k, ms in sorted(r["by_node"].items(), key=lambda kv: -kv[1])[:8]))
+
+
+def main_train() -> None:
+    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_backend="fused", num_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0)
+    state = init_train_state(cfg, tcfg, seed=0, device="cuda")
+    state["step"].fill_(1)
+    batch = SyntheticLMPipeline(cfg, 1, TRAIN_SEQ, PipelineConfig(seed=0)).batch_at(1)
+    print(f"{cfg.name} at full width, {TRAIN_LAYERS} of 64 layers, fused scan, batch (1, {TRAIN_SEQ})")
+    report_train(profile_train_step(cfg, tcfg, state, batch))
 
 
 def main() -> None:
@@ -107,6 +195,9 @@ def main() -> None:
         topk_sample(out, gen, k=40, temperature=0.8, backend="kernel")
 
     _report("decode step with its top-k sample", _trace(step, ITERS))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    main_train()
 
 
 if __name__ == "__main__":

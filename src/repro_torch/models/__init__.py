@@ -1,3 +1,3 @@
-from .model import forward_decode, forward_prefill, init_caches, init_params
+from .model import forward_decode, forward_prefill, forward_train, init_caches, init_params
 
-__all__ = ["forward_decode", "forward_prefill", "init_caches", "init_params"]
+__all__ = ["forward_decode", "forward_prefill", "forward_train", "init_caches", "init_params"]

@@ -1,4 +1,4 @@
-"""Top-level model API: embed -> layers -> logits, for prefill and decode.
+"""Top-level model API: embed -> layers -> logits, for training, prefill and decode.
 
 The PyTorch counterpart of the reference's ``repro/models/model.py`` for
 the dense and SSM families.  ``forward_decode`` walks the layers in a
@@ -7,8 +7,9 @@ layout, ``{"sub<i>": {...}}`` with a leading ``num_groups`` axis — ``k``
 and ``v`` ``(num_groups, B, cache_len, K, hd)`` for attention, ``conv``
 ``(num_groups, B, k-1, d_inner)`` and ``ssm`` ``(num_groups, B, d_inner,
 state)`` float32 for Mamba — and are updated in place.
-``forward_prefill`` runs the SSM family (on the fused scan kernel with
-``ssm_backend="fused"``); attention prefill comes with a later slice.
+``forward_train`` and ``forward_prefill`` run the SSM family (on the fused
+scan kernels with ``ssm_backend="fused"``); attention comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from . import ssm as ssm_mod
 from .layers import mlp_apply, rms_norm
 from .transformer import _dtype, _group_windows, check_family, init_params, layer_params, stack_forward
 
-__all__ = ["init_params", "init_caches", "forward_prefill", "forward_decode"]
+__all__ = ["init_params", "init_caches", "forward_train", "forward_prefill", "forward_decode"]
 
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -69,6 +70,24 @@ def _prepare_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor
     return _embed(cfg, params, torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device))
 
 
+def _check_ssm(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.family != SSM:
+        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Logits ``(B, S, V)`` aligned with ``batch["labels"]``, from the
+    cache-free stack (rematerialised per layer group with ``cfg.remat``).
+
+    The SSM family only: a family with attention raises until attention
+    is ported (see ROADMAP.md).
+    """
+    _check_ssm(cfg)
+    x, _ = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch))
+    return _logits(cfg, params, x)
+
+
 def forward_prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache_len: int = 0):
     """Run the prompt ``batch["tokens"] (B, S)``: ``(last-position logits
     (B, V), caches, enc_kv)``, the caches in :func:`init_caches`' layout,
@@ -78,10 +97,8 @@ def forward_prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache_len: int 
     the attention caches'): a family with attention raises until
     attention prefill is ported (see ROADMAP.md).
     """
-    check_family(cfg)
-    if cfg.family != SSM:
-        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
-    x, caches = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch))
+    _check_ssm(cfg)
+    x, caches = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch), collect_caches=True)
     logits = _logits(cfg, params, x[:, -1:])[:, 0]
     return logits, caches, None
 

@@ -8,10 +8,12 @@ scan runs, per ``cfg.ssm_backend``:
   each chunk in log-depth (Hillis-Steele over the linear-recurrence monoid
   ``(a2, b2) o (a1, b1) = (a1 * a2, b1 * a2 + b2)``) and carried from chunk
   to chunk in a loop, as the reference's associative scan does;
-* ``"fused"`` — the hand-written selective-scan kernel (K9,
-  :func:`repro_torch.kernels.ssm_scan.ssm_scan`): the state stays on chip
-  and the decay/update tensors are never materialised.  Forward only: the
-  backward (K10) comes with the training slice.
+* ``"fused"`` — the hand-written selective-scan kernels
+  (:func:`repro_torch.kernels.ssm_scan.ssm_scan`): the state stays on chip
+  and the decay/update tensors are never materialised.  It trains: when a
+  gradient is needed the forward (K9) keeps chunk checkpoints and the
+  backward is the chunk-recompute kernel (K10), through
+  :class:`~repro_torch.kernels.ssm_scan.SsmScanFunction`.
 
 Parameters keep the reference's layout; :func:`mamba_init` stacks them on
 the leading axes ``lead`` (the layers).
@@ -93,8 +95,8 @@ def ssm_apply(
     h_final (B, di, st) float32)``.
 
     ``"fused"`` launches K9 on a CUDA tensor (its plain version on a CPU
-    one) and casts its ``y``, which is in ``xc``'s dtype, to float32, as the
-    reference does; ``"scan"`` materialises the decay/update pairs in
+    one; differentiable through K10) and casts its ``y``, which is in
+    ``xc``'s dtype, to float32, as the reference does; ``"scan"`` materialises the decay/update pairs in
     ``cfg.ssm_scan_dtype`` and runs the chunked scan.
     """
     b, s, di = xc.shape
@@ -135,15 +137,22 @@ def _project(params: Dict, xc: torch.Tensor, cfg: ModelConfig):
     return dt, bmat, cmat, -torch.exp(params["A_log"])
 
 
-def mamba_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Training/prefill form: ``x (B, S, d) -> (B, S, d)``."""
+def mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block over a whole sequence: ``(out (B, S, d), xin (B, S, di),
+    h_final (B, di, st) float32)``, ``xin`` being the conv's input, from
+    which a caller that decodes on takes its conv state."""
     xin, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
     xc, _ = _causal_conv(xin, params["conv_w"], None)
     xc = F.silu(xc)
     dt, bmat, cmat, a = _project(params, xc, cfg)
-    y, _ = ssm_apply(dt, xc, bmat, cmat, a, cfg)
+    y, h_final = ssm_apply(dt, xc, bmat, cmat, a, cfg)
     y = (y + params["D"][None, None] * xc.float()).to(x.dtype)
-    return (y * F.silu(z)) @ params["out_proj"]
+    return (y * F.silu(z)) @ params["out_proj"], xin, h_final
+
+
+def mamba_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Training/prefill form: ``x (B, S, d) -> (B, S, d)``."""
+    return mamba_block(params, x, cfg)[0]
 
 
 def mamba_decode(

@@ -4,9 +4,11 @@ The PyTorch counterpart of the reference's ``repro/models/transformer.py``
 for the dense and SSM families.  Parameters keep the reference's layout so
 that weights convert one to one (:mod:`repro_torch.convert`): every layer
 parameter is stacked on a leading ``num_layers`` axis, and layers are
-grouped in homogeneous groups of ``cfg.layer_group``.  The prefill stack
-(:func:`stack_forward`) runs the SSM family; attention prefill and the
-other families (MoE, hybrid, VLM, audio) come with later slices.
+grouped in homogeneous groups of ``cfg.layer_group``.  The stack
+(:func:`stack_forward`) runs the SSM family, with the decode caches for
+prefill or without them for training (each layer group rematerialised in
+the backward with ``cfg.remat``); attention prefill and the other
+families (MoE, hybrid, VLM, audio) come with later slices.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
@@ -103,18 +106,35 @@ def layer_params(layers: Dict, index: int) -> Dict:
     return {k: layer_params(v, index) if isinstance(v, dict) else v[index] for k, v in layers.items()}
 
 
+def unstack_layers(layers: Dict, n: int) -> List[Dict]:
+    """All ``n`` layers' parameters, views into the stacked tensors.
+
+    One ``torch.unbind`` per stacked tensor, so that the backward stacks
+    the layers' gradients once; indexing each layer apart would give every
+    layer a zero gradient the size of the whole stack to add up.
+    """
+    per_leaf = {k: unstack_layers(v, n) if isinstance(v, dict) else torch.unbind(v) for k, v in layers.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
-# layer forward (prefill)
+# layer forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor):
-    """One SSM-family layer over a whole sequence: ``(x', cache)``, the
-    cache ``{"conv", "ssm"}`` that decoding goes on from."""
+def _layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor, collect_cache: bool = False):
+    """One SSM-family layer over a whole sequence: ``(x', cache)``.  With
+    ``collect_cache`` the cache is ``{"conv", "ssm"}``, what decoding goes
+    on from; without it, it is empty.  Both run the one block body,
+    :func:`~repro_torch.models.ssm.mamba_block`."""
     if "attn" in p:
         raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
     cache: Dict[str, torch.Tensor] = {}
-    y, cache["conv"], cache["ssm"] = _mamba_with_state(p["mamba"], rms_norm(x, p["attn_norm"], cfg.rms_eps), cfg)
+    h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    if collect_cache:
+        y, cache["conv"], cache["ssm"] = _mamba_with_state(p["mamba"], h, cfg)
+    else:
+        y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
     x = x + y
     if "ffn_norm" in p:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
@@ -126,32 +146,45 @@ def _mamba_with_state(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch
     final ``(conv, ssm)`` states for decoding."""
     s = h.shape[1]
     kk = cfg.ssm_conv
-    xin, z = torch.chunk(h @ p["in_proj"], 2, dim=-1)
-    xc, _ = ssm_mod._causal_conv(xin, p["conv_w"], None)
+    out, xin, h_final = ssm_mod.mamba_block(p, h, cfg)
     # the last k-1 inputs; a prompt shorter than that is padded with zeros in front
     conv_state = xin[:, -(kk - 1):] if s >= kk - 1 else F.pad(xin, (0, 0, kk - 1 - s, 0))
-    xc = F.silu(xc)
-    dt, bmat, cmat, a = ssm_mod._project(p, xc, cfg)
-    y, h_final = ssm_mod.ssm_apply(dt, xc, bmat, cmat, a, cfg)
-    y = (y + p["D"][None, None] * xc.float()).to(h.dtype)
-    y = y * F.silu(z)
-    return y @ p["out_proj"], conv_state.contiguous(), h_final
+    return out, conv_state.contiguous(), h_final
 
 
-def stack_forward(cfg: ModelConfig, layers: Dict, x: torch.Tensor):
+def stack_forward(cfg: ModelConfig, layers: Dict, x: torch.Tensor, *, collect_caches: bool = False):
     """Run the layer stack in a Python loop (the reference scans it).
 
-    Returns ``(x, caches)``, the caches in the decode layout ``{"sub<i>":
-    {"conv", "ssm"}}``, each stacked on a leading ``num_groups`` axis: the
-    reference's ``collect_caches=True``, the one setting prefill uses.  The
-    cache-free forward comes with the training slice, the reference's
-    positions and cache length with attention prefill.
+    Returns ``(x, caches)``.  With ``collect_caches`` (prefill) the caches
+    are in the decode layout ``{"sub<i>": {"conv", "ssm"}}``, each stacked
+    on a leading ``num_groups`` axis.  Without it (training) ``caches`` is
+    None, and with ``cfg.remat`` and grad mode on each layer group runs
+    under ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of the scan body (``remat_policy="full"``; ``"dots"``
+    raises until it is ported).  The reference's positions and cache
+    length come with attention prefill.
     """
     gp = cfg.layer_group
-    collected: List[Dict[str, List[torch.Tensor]]] = [{} for _ in range(gp)]
-    for g in range(cfg.num_layers // gp):
+    ng = cfg.num_layers // gp
+    per_layer = unstack_layers(layers, cfg.num_layers)
+    if collect_caches:
+        collected: List[Dict[str, List[torch.Tensor]]] = [{} for _ in range(gp)]
+        for g in range(ng):
+            for i in range(gp):
+                x, cache = _layer_fwd(cfg, per_layer[g * gp + i], x, collect_cache=True)
+                for name, t in cache.items():
+                    collected[i].setdefault(name, []).append(t)
+        return x, {f"sub{i}": {name: torch.stack(ts) for name, ts in c.items()} for i, c in enumerate(collected)}
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is ported in a later slice, see ROADMAP.md")
+
+    def group(x, g):
         for i in range(gp):
-            x, cache = _layer_fwd(cfg, layer_params(layers, g * gp + i), x)
-            for name, t in cache.items():
-                collected[i].setdefault(name, []).append(t)
-    return x, {f"sub{i}": {name: torch.stack(ts) for name, ts in c.items()} for i, c in enumerate(collected)}
+            x, _ = _layer_fwd(cfg, per_layer[g * gp + i], x)
+        return x
+
+    for g in range(ng):
+        x = checkpoint(group, x, g, use_reentrant=False) if remat else group(x, g)
+    return x, None

@@ -11,6 +11,7 @@ from .spans import (
     TickClock,
     WallClock,
     get_telemetry,
+    wall_seconds,
 )
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     "TickClock",
     "WallClock",
     "get_telemetry",
+    "wall_seconds",
 ]

@@ -31,6 +31,13 @@ class WallClock:
 WALL = WallClock()
 
 
+def wall_seconds() -> float:
+    """Monotonic wall seconds, the port's copy of the reference's
+    ``repro.telemetry.wall_seconds``: host-side durations (step times)
+    read it instead of a raw clock."""
+    return WALL.now() / 1e6
+
+
 class TickClock:
     """Deterministic clock counted in engine ticks: ``tick * TICK_SCALE + seq``,
     where ``seq`` counts reads within the tick."""

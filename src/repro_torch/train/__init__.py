@@ -1,5 +1,5 @@
-"""Step builders: the serve steps so far; training comes with its slice."""
+"""Step builders: the train step with its loss, and the serve steps."""
 
-from .steps import make_decode_step, make_prefill_step
+from .steps import cross_entropy_loss, init_train_state, make_decode_step, make_prefill_step, make_train_step
 
-__all__ = ["make_decode_step", "make_prefill_step"]
+__all__ = ["cross_entropy_loss", "init_train_state", "make_decode_step", "make_prefill_step", "make_train_step"]

@@ -1,24 +1,77 @@
-"""Serve-step builders, the counterparts of the reference's ``repro/train/steps.py``.
+"""Step builders, the counterparts of the reference's ``repro/train/steps.py``.
 
-``make_prefill_step(cfg)`` and ``make_decode_step(cfg)`` return the
-functions that the reference's dry run lowers for its ``prefill`` and
-``decode`` shapes.  Both cast the parameters to the compute dtype first,
-with the reference's rule (:func:`_cast`).  A leaf already in that dtype
-passes through uncopied, so a caller that steps many times casts its
-parameters once with :func:`_cast` (as the serving engine does) and each
-step copies nothing.  The training step, its loss and its optimizer come
-with the training slice.
+``make_train_step(cfg, tcfg)`` returns ``(state, batch) -> (state,
+metrics)``: the loss (:func:`cross_entropy_loss`), its gradient by
+autograd (through K9 and K10 with ``ssm_backend="fused"``), optionally
+accumulated over microbatches, and the AdamW update.  The state is the
+reference's: ``{"step", "params", "opt": {"m", "v"}}`` with float32
+masters and moments (:func:`init_train_state`).  ``make_prefill_step(cfg)``
+and ``make_decode_step(cfg)`` return the serve steps that the reference's
+dry run lowers for its ``prefill`` and ``decode`` shapes.  Every step
+casts the parameters to the compute dtype first, with the reference's
+rule (:func:`_cast`).  A leaf already in that dtype passes through
+uncopied, so a caller that serves many steps casts its parameters once
+with :func:`_cast` (as the serving engine does) and each step copies
+nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import forward_decode, forward_prefill
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import forward_decode, forward_prefill, forward_train, init_params
 from repro_torch.models.transformer import _dtype
+from repro_torch.optim.adamw import adamw_update, init_opt_state, tree_leaves
+
+
+def _check_compression(tcfg: TrainConfig) -> None:
+    if tcfg.grad_compression != "none":
+        raise NotImplementedError(
+            f"grad_compression={tcfg.grad_compression!r} is ported with the parallel slice, see ROADMAP.md")
+
+
+def _rebuild(tree, leaves) -> Dict:
+    """``tree``'s layout with ``leaves`` (in ``tree_leaves`` order) in place of its own."""
+    it = iter(leaves)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else next(it) for k, v in node.items()}
+
+    return walk(tree)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor, z_loss: float
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token cross-entropy in float32 plus the z-loss; labels < 0 are
+    masked.  Returns ``(loss, {"ce", "z_loss"})``."""
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device)
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = ce.sum() / denom
+    zl = z_loss * torch.sum(torch.square(lse) * mask) / denom
+    return loss + zl, {"ce": loss, "z_loss": zl}
+
+
+def init_train_state(
+    cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0, device: Optional[Union[str, torch.device]] = None
+) -> Dict[str, Any]:
+    """``{"step": int32 0, "params": float32 masters, "opt": {"m", "v"}}`` on
+    ``device`` (the card by default), the parameters from :func:`init_params`
+    at ``seed``."""
+    _check_compression(tcfg)
+    dev = resolve_device(device)
+    params = init_params(cfg, seed=seed, device=dev)
+    params = _rebuild(params, [p.float() for p in tree_leaves(params)])
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev), "params": params, "opt": init_opt_state(params)}
 
 
 def _cast(params: Dict, dtype: torch.dtype) -> Dict:
@@ -31,6 +84,61 @@ def _cast(params: Dict, dtype: torch.dtype) -> Dict:
     return {k: _cast(v, dtype) if isinstance(v, dict) else
             (v.to(dtype) if v.dtype == torch.float32 and v.ndim > 1 else v)
             for k, v in params.items()}
+
+
+def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params: Dict, batch: Dict):
+    """``(loss, {"ce", "z_loss"}, grads)`` of one batch: the loss of
+    ``forward_train`` on the parameters cast with :func:`_cast`, and its
+    float32 gradient with respect to the masters ``params``, in their
+    layout.  ``batch`` holds tensors on the parameters' device."""
+    masters = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    logits = forward_train(cfg, _cast(_rebuild(params, masters), _dtype(cfg)), batch)
+    loss, metrics = cross_entropy_loss(logits, batch["labels"], tcfg.z_loss)
+    del logits
+    grads = torch.autograd.grad(loss, masters)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _rebuild(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``tokens`` and ``labels`` ``(B, S)`` (tensors or numpy
+    arrays).  With ``tcfg.microbatch > 1`` the batch is cut into that many
+    equal parts along B, their gradients summed in float32 and divided by
+    the count, as the reference's ``lax.scan`` does; the metrics are then
+    ``loss``, ``grad_norm`` and ``lr`` only, as there.  Otherwise they also
+    hold ``ce`` and ``z_loss``.  The returned state holds the same tensors
+    as the one passed in, updated in place (see :mod:`repro_torch.optim.adamw`),
+    its ``step`` one more.
+    """
+    _check_compression(tcfg)
+
+    def grads_of(params: Dict, batch: Dict):
+        if tcfg.microbatch and tcfg.microbatch > 1:
+            nm = tcfg.microbatch
+            b = batch["tokens"].shape[0]
+            if b % nm:
+                raise ValueError(f"batch {b} is not a multiple of microbatch {nm}")
+            acc, total = None, 0.0
+            for i in range(nm):
+                part = {k: v[i * (b // nm):(i + 1) * (b // nm)] for k, v in batch.items()}
+                loss, _, grads = loss_and_grads(cfg, tcfg, params, part)
+                grads = list(tree_leaves(grads))
+                acc = grads if acc is None else [a.add_(g) for a, g in zip(acc, grads)]
+                total = total + loss
+            return total / nm, {}, _rebuild(params, [g.div_(nm) for g in acc])
+        return loss_and_grads(cfg, tcfg, params, batch)
+
+    def train_step(state: Dict[str, Any], batch: Dict):
+        dev = state["step"].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, metrics, grads = grads_of(state["params"], batch)
+        params, opt, opt_metrics = adamw_update(tcfg, state["params"], grads, state["opt"], state["step"])
+        new_state = dict(state)
+        new_state.update(step=state["step"] + 1, params=params, opt=opt)
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

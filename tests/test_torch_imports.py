@@ -23,8 +23,14 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+print(len(names), ",".join(names), bad)
 """
+
+# the modules of the training slice: each must be walked (and so imported) above
+TRAIN_MODULES = {
+    "repro_torch.optim.adamw", "repro_torch.train.steps", "repro_torch.train.smoke", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.manager", "repro_torch.runtime.fault_tolerance", "repro_torch.launch.train",
+}
 
 
 def _forbidden(module: str) -> bool:
@@ -36,8 +42,9 @@ def test_importing_the_port_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15  # every module was walked
+    count, names, bad = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 44  # every module was walked
+    assert TRAIN_MODULES <= set(names.split(","))
     assert bad == "[]"
 
 
