@@ -38,9 +38,11 @@ Phases (any failure raises, and the script exits non-zero):
    shapes; falcon-mamba-7b at full width (random weights from a seed, fused
    scan) prefilled on a (1, 32768) prompt with ``make_prefill_step`` (K9
    once per layer: 64 launches), then 16 tokens sampled with top-k 40 on K4
-   through ``make_decode_step``; K9 on layer 0's own inputs; prefill against
-   stepping at full width; the reduced config on the card against the CPU;
-   CUDA-event times of K9 and its plain version;
+   through ``make_decode_step``; K9 on layer 0's own inputs, twice
+   bit-identical, with and without checkpoints; a bfloat16 x of rows that
+   break K9's 16-byte rule raises; prefill against stepping at full width;
+   the reduced config on the card against the CPU; CUDA-event times of K9
+   and its plain version;
 8. training (:func:`phase_train`): K10, the selective scan's backward,
    against its plain version at falcon-mamba's layer shapes (D = 8192,
    state 16) and at edge shapes, two launches bit-identical; the
@@ -70,6 +72,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+SFU_EX2_PER_S = 16 * 132 * 1.98e9  # H100 SXM exponentials: 16 per SM per clock, 132 SMs, 1.98 GHz
 M, TILE, LEAF = 32768, 512, 32  # tinyllama's vocab 32000 pads to 32768
 WIDTHS = tuple(1 << e for e in range(9, 15))  # the 6 wide rounds: 512 ... 16384
 CSRC = "src/repro_torch/kernels/csrc"
@@ -901,6 +904,7 @@ def _copy(tree, device):
 SCAN_SHAPES = ((1, 4096), (4, 1000), (3, 129), (2, 1))  # (B, S) at the layer's D and st
 SCAN_EDGES = ((2, 77, 200, 16), (2, 77, 200, 8), (1, 50, 40, 16))  # (B, S, D, st): ragged D, both st
 SCAN_CHUNK = 128  # falcon-mamba's ssm_chunk
+TILE_K9 = 32  # K9's tile: with checkpoints, the chunk is a multiple of it
 # K9 against its plain version: the kernel's exp is ex2.approx (a few float32
 # ulps each) and its sums run in another order, and the error of a state is the
 # sum of its steps' errors over the recurrence's memory (about 1 / |dt * a|
@@ -921,14 +925,14 @@ def scan_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
     float32), against 7 float32 operations per state and step and one per
     (b, t, d) (``dt * x``) at the card's float32 rate outside the tensor
     cores.  Also the time of its exponentials alone on the special-function
-    units (16 per SM per clock, 132 SMs at 1.98 GHz)."""
+    units (``SFU_EX2_PER_S``), the floor that binds K9."""
     dt_b, x_b, bc_b, a_b = sizes
     n = bsz * s * d
     nbytes = n * (dt_b + 2 * x_b) + 2 * bsz * s * st * bc_b + d * st * a_b + 4 * bsz * d * st
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (n + 7 * n * st) / SCALAR_OPS_PER_S * 1e3
     return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "ops_ms": t_ops, "exp_unit_ms": n * st / (16 * 132 * 1.98e9) * 1e3}
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "exp_unit_ms": n * st / SFU_EX2_PER_S * 1e3}
 
 
 def scan_inputs(bsz: int, s: int, d: int, st: int, act_dtype, gen, device: str):
@@ -979,8 +983,11 @@ def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool 
        ``new_tokens`` tokens sampled with top-k 40 on K4, the first from
        the prefill's logits and each next one after a ``make_decode_step``.
        K9 must run once per layer, K4 its wide rounds per sampled token.
-       Then K9 on layer 0's own inputs against its plain version, and the
-       times.
+       Then K9 on layer 0's own inputs against its plain version, twice
+       bit-identical, with and without checkpoints (y and h_final
+       bit-identical; the checkpoints of chunk 32 those of chunk 128 where
+       the starts coincide); a bfloat16 x whose rows break the kernel's
+       16-byte rule raises and launches nothing; the times.
     3. Prefill against stepping: layer 0's states after ``make_prefill_step``
        of the first ``step_prompt`` tokens against ``step_prompt`` decode
        steps, at full width; then the reduced config (float32) on this
@@ -1103,6 +1110,32 @@ def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool 
     args0, kw0 = layer0[0]
     got = compare(args0, f"layer 0 of the prefill {tuple(args0[1].shape)}", False, kw0["chunk"])
     check(torch.equal(got[1], state0), "layer 0's cached state is not K9's h_final on the same inputs")
+    again = ks.ssm_scan(*args0, **kw0)
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), "two K9 launches on layer 0's inputs differ")
+    ck = {n: ks.ssm_scan(*args0, chunk=n, checkpoints=True) for n in (TILE_K9, SCAN_CHUNK)}
+    for n, (y_n, h_n, _) in ck.items():
+        check(torch.equal(y_n, got[0]) and torch.equal(h_n, got[1]), f"K9 with checkpoints every {n} changed y or h_final")
+    check(torch.equal(ck[TILE_K9][2][:, ::SCAN_CHUNK // TILE_K9], ck[SCAN_CHUNK][2]),
+          f"K9's checkpoints of chunk {TILE_K9} and {SCAN_CHUNK} differ at their shared starts")
+    del again, ck
+    bad = scan_inputs(1, 8, 20, 16, torch.bfloat16, gen, device)  # D = 20: 40-byte rows of x
+    with_rule = False
+    try:
+        ks.check_kernel_rules(*bad, SCAN_CHUNK, False)
+    except ValueError:
+        with_rule = True
+    check(with_rule, "K9's rules took a bfloat16 x of 40-byte rows")
+    if on_card:
+        before = ks.ssm_scan.launches
+        try:
+            ks.ssm_scan(*bad)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised and ks.ssm_scan.launches == before, "K9 launched on a bfloat16 x of 40-byte rows")
+    print(f"ssm: K9 on layer 0's inputs: two launches bit-identical; checkpoints every {TILE_K9} and {SCAN_CHUNK} "
+          f"leave y and h_final bit-identical and agree at their shared starts; a bfloat16 x of D = 20 "
+          f"{'raises and launches nothing' if on_card else 'breaks the rules'}")
     out = {"launches": prefill_k9, "max_abs_err": max_err, "ms": None, "plain_ms": None, "bound_ms": None,
            "bound_by": None, "library_ms": None}
     if on_card:
@@ -1116,7 +1149,8 @@ def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool 
         print(f"  K9 {tuple(args0[1].shape)} st {args0[2].shape[2]} (dt {args0[0].dtype}, x {args0[1].dtype}): "
               f"kernel_ms {out['ms']:.5f}  plain_ms {out['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} ({bound['by']}; "
               f"bytes {bound['bytes_ms']:.6f}, float32 ops {bound['ops_ms']:.6f}, exponentials on the SFUs "
-              f"{bound['exp_unit_ms']:.6f}); K9 in all {out['ms'] * prefill_k9:.2f} ms of the "
+              f"{bound['exp_unit_ms']:.6f}); kernel {out['ms'] / bound['exp_unit_ms']:.3f}x the SFU floor, "
+              f"{out['ms'] / bound['ms']:.3f}x the bound; K9 in all {out['ms'] * prefill_k9:.2f} ms of the "
               f"{prefill_s * 1e3:.1f} ms prefill; one decode step alone {step_ms:.3f} ms (CUDA events)")
     del layer0, args0, got, caches
 
@@ -1210,7 +1244,10 @@ def bwd_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
     rate outside the tensor cores.  ``partial_bytes`` are the per-block
     partials of dB and dC (B, D / 32, S, st) and of dA (B, D, st) that
     K10's reduction design writes and reads again: overhead of the design,
-    not in the bound."""
+    not in the bound.  ``exp_unit_ms`` is the time of its exponentials alone
+    on the special-function units: two per state and step (the recompute's
+    and the reverse pass's decay), above the byte bound at the train step's
+    shape."""
     dt_b, x_b, dy_b, bc_b, a_b = sizes
     n, ns = bsz * s * d, bsz * s * st
     n_ck = bsz * -(-s // 32) * d * st
@@ -1220,7 +1257,8 @@ def bwd_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 20 * n * st / SCALAR_OPS_PER_S * 1e3
     return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes, "partial_bytes": partial_bytes}
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes, "partial_bytes": partial_bytes,
+            "exp_unit_ms": 2 * n * st / SFU_EX2_PER_S * 1e3}
 
 
 def _fingerprints(tree):
@@ -1465,7 +1503,8 @@ def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d
               f"kernel_ms {res['ms']:.5f}  plain_ms {res['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} "
               f"({bound['by']}; bytes {bound['bytes_ms']:.6f}, float32 ops {bound['ops_ms']:.6f}; the function's "
               f"{bound['bytes'] / 1e6:.1f} MB, and the design's partials of dB, dC and dA another "
-              f"{bound['partial_bytes'] / 1e6:.1f} MB written and read, not in the bound); K10 in all "
+              f"{bound['partial_bytes'] / 1e6:.1f} MB written and read, not in the bound; exponentials on the "
+              f"SFUs {bound['exp_unit_ms']:.6f}, kernel {res['ms'] / bound['exp_unit_ms']:.3f}x that floor); K10 in all "
               f"{res['ms'] * layers:.2f} ms of a {ms:.1f} ms step (CUDA events)")
         from repro_torch.launch.profile import profile_train_step, report_train
 

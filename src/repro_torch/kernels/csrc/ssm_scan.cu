@@ -9,269 +9,514 @@
 //     y_t = sum_s h_t[s] * C_t[s]
 // with dt, x (B, S, D), B, C (B, S, st) and a (D, st).  Every input is read in
 // its own dtype (float32 or bfloat16, named by `flags`) and converted to
-// float32 in registers; all arithmetic is float32.  y is written in x's dtype
-// (rounded to nearest even for bfloat16), the last state h_final (B, D, st) in
-// float32 and, when `hstart` is not null, the state at the start of every
-// chunk, hstart (B, ceil(S / chunk), D, st) in float32 (hstart[:, 0] = 0);
-// the chunk is then a multiple of the 32-step tile, so that every checkpoint
-// falls on a tile start.  The state width is 8 or 16, the widths of the
-// configs that run the fused scan.
-// S need not be a multiple of the chunk: the last tile of a block is short,
+// float32 when a thread reads it; all arithmetic is float32.  y is written in
+// x's dtype (rounded to nearest even for bfloat16), the last state h_final
+// (B, D, st) in float32 and, when `hstart` is not null, the state at the start
+// of every chunk, hstart (B, ceil(S / chunk), D, st) in float32 (hstart[:, 0]
+// = 0); the chunk is then a multiple of the 32-step tile, so that every
+// checkpoint falls on a tile start.  The state width is 8 or 16, the widths of
+// the configs that run the fused scan.  S need not be a multiple of anything:
 // nothing is padded on the host, and h_final is the state after step S - 1.
 //
 // Design.  The TPU kernel walks a (batch, d-tile, seq-chunk) grid in order and
 // carries the state in VMEM from one seq step of the grid to the next.  Blocks
-// on Hopper run in no order, so here a block owns one (b, 32 channels) and
-// loops over the whole sequence itself, with the state in registers; nothing
-// of the state goes to device memory except h_final and the checkpoints.
-//  * Parallelism is B * D * st lanes of state (131,072 at B = 1, D = 8192,
-//    st = 16), and the sequence is the one axis that cannot be split without
-//    a second pass.  A thread holds 2 states of one channel; a warp is the 32
-//    channels of the block for one pair of states (lane = channel), and a
-//    block is st / 2 warps (256 threads at st = 16).  B = 1 gives 256
-//    blocks, 16 warps per SM.
-//  * The sequence is staged through shared memory in tiles of 32 steps,
-//    converted to float32 on the way in: (dt, x) pairs per channel and the B
-//    and C values of each warp's states side by side.  Tile k + 1 is loaded
-//    into registers (4 channels or 2 states per load) while tile k runs; the
-//    loads return raw bits and are converted only when staged, so that no
-//    conversion waits on its load.  Each step writes each thread's part of y
-//    (the sum over its 2 states) to shared memory; after the tile, y is the
-//    sum of the st / 2 parts, written 4 channels per store.
-//  * Groups of 4 steps first do what does not depend on the state (the
-//    loads, the exponentials, the update terms), then the 4 state updates:
-//    a warp issues in order, so this keeps several exponentials in flight.
-//  * exp runs on the special-function unit as ex2.approx.ftz of dt * (a *
-//    log2 e): one MUFU op and one multiply per state and step (a * log2 e is
-//    formed once per thread).  Its relative error is a few float32 ulps where
-//    the decay matters (|dt * a| of order 1); results below 2^-126 flush to 0.
-//    chip_smoke.py states the tolerance against the plain version.
-//  * Element offsets are 64-bit: B * S * D passes 2^31 at (4, 32768, 8192).
+// on Hopper run in no order, so a block owns one (b, CH channels) and walks
+// the whole sequence itself, with the state in registers.
+//  * Threads.  A consumer warp is one group of kStates = 4 states of all
+//    kCh = 32 channels: lane l holds those states of channel l, so a warp's
+//    reads of B and C are one address (a broadcast), and its reads of dt and
+//    x consecutive words.  A block is st / 4 consumer warps and one producer
+//    warp, and B = 1, D = 8192 gives 256 blocks, 8 consumer warps per SM.
+//    The thread map and the ring's 4 stages are what a sweep on the card
+//    chose (2, 4 or 8 states per thread, 32 or 64 channels per block, 3 or 4
+//    stages; PERF.md has the table): this one was the fastest at the
+//    prefill's shape and within 0.5 % of the fastest at the others.
+//  * A ring of tiles in shared memory.  Each stage holds 32 steps of dt and x
+//    (CH channels) and of B and C (all st states), brought in by the Tensor
+//    Memory Accelerator (TMA) as raw bits in their own dtype, through 3-D
+//    tensor maps over (B, S, D) and (B, S, st): a box past the end of S or D is
+//    filled with zeros by the hardware and never reads the next batch row.
+//    Each stage has three mbarriers: "loaded" (the copies' bytes landed),
+//    "ready" (the producer has turned B and C into float32: one conversion per
+//    block, not one per thread and state) and "empty" (every consumer warp is
+//    done with the stage).  Nothing waits on the whole block after the start:
+//    a consumer warp waits only for the stage it needs next, the producer for
+//    the stage it retires.
+//  * y.  Each thread writes its part of y_t (the sum over its 4 states) to a
+//    buffer of parts; one tile later, each consumer warp sums its share of the
+//    tile's y in warp order into a y tile in x's dtype, and the producer
+//    writes the tile back with one TMA store.  The sum is fixed in order and
+//    there are no atomics, so two launches give the same bits.
+//  * Latency.  At B = 1 an SM holds 8 consumer warps, two per scheduler, so
+//    one warp's stalls are not hidden for long.  A group of 4 steps' inputs
+//    comes into registers while the group before it runs; the loads must be
+//    issued ahead of that group's stores of its parts by hand, because the
+//    compiler does not move a load past a store into the same shared array.
+//  * The step, scan_step of ssm_scan.cuh (shared with K10): exp on the
+//    special-function unit (SFU) as ex2.approx.ftz of dt * (a * log2 e), the
+//    update dx * b, one fma.  Past the end of S the zero-filled dt gives a
+//    decay of 1 and an update of 0, so the state carries over unchanged and
+//    the last tile needs no other path; the TMA store drops y past the end.
+//  * Offsets into hstart and h_final are 64-bit; S and B * D / 32 fit in 32.
 //
-// What bounds it.  Bytes: dt, x and y once each (8 bytes per (b, t, d) on the
-// model path: dt float32, x and y bfloat16), plus B, C, a and h_final:
-// 2.15 GB at (1, 32768, 8192, 16), 0.64 ms at 3.35 TB/s.  Operations: 7 float32
-// operations per (b, t, d, s) (dt * a, exp, the update product, the two of the
-// state update, the product with C and its sum), 3.0e10 at that shape, 0.45 ms
-// at the card's 67 TFLOP/s outside the tensor cores: so by the published
-// rates the bytes bound it.  The exponentials alone are 4.3e9 MUFU ops, about
-// 1.03 ms at 16 per SM per clock (132 SMs, 1.98 GHz).  What this design meets
-// first is neither: it is shared memory's delivery to the lanes, 128 bytes per
-// SM per clock.  Each thread takes 28 bytes per step (its (dt, x), its 2 B
-// and 2 C values, its y part), 14 per state, about 112 clocks per step on an
-// SM at B = 1, about 1.9 ms at S = 32768 (PERF.md has the measurements).
-// More states or channels per thread cut those bytes but leave too few warps
-// per SM at B = 1; splitting the sequence across blocks (a second pass that
-// carries the states) and TMA staging are left for later work.
+// What bounds it, at (1, 32768, 8192, 16) with the model path's dtypes (dt
+// float32; x, y, B, C, a bfloat16).  Bytes: dt, x and y once each, B, C, a and
+// h_final: 2.15 GB, 0.642 ms at 3.35 TB/s.  Float32 operations: 7 per (b, t,
+// d, s) and one per (b, t, d), 3.0e10, 0.453 ms at 67 TFLOP/s.  The
+// exponentials: one per (b, t, d, s), 4.29e9, at 16 per SM per clock (132 SMs,
+// 1.98 GHz) 1.027 ms.  That last floor binds: no design gets under it unless
+// it moves exponentials onto the FMA pipes, and per element the FMA pipes
+// already carry four of the five instructions an SFU-bound step issues.
+// Splitting the sequence across blocks (a chunk pass, a carry pass, then y)
+// would apply each carried state to the later segments' steps, a second
+// exponential per state and step (the recurrence rerun from the carry, or
+// exp(a * cumsum dt)), so the SFU floor would rise to about 1.5 ms with two
+// segments; the design keeps one pass per block and raises what an SM gets
+// done per clock instead.  Measured on an H100 (PERF.md): about 1.5x the SFU
+// floor.  What is left is latency: with two consumer warps per scheduler,
+// neither the SFU nor the issue slots are kept full.
+
+#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder itself comes through the runtime
 
 #include "ssm_scan.cuh"
 
 namespace {
 
-constexpr int kGroup = 4;   // steps whose exponentials are in flight together
+// ---- mbarriers and the Tensor Memory Accelerator (PTX) ----
 
-// float32 -> bfloat16 bits, rounded to nearest even, NaN kept quiet (as torch rounds)
-__device__ __forceinline__ uint32_t bf16_bits(float f) {
-  const uint32_t u = __float_as_uint(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
-  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Elements i .. i + 3 (i a multiple of 4) from float32, in one store.
-__device__ __forceinline__ void store4(void* p, int64_t i, float4 v, bool bf16) {
-  if (bf16) {
-    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(p) + i) =
-        make_uint2(bf16_bits(v.x) | bf16_bits(v.y) << 16, bf16_bits(v.z) | bf16_bits(v.w) << 16);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\tmbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box from shared memory into a 3-D tensor map; elements past its bounds are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
+
+// Until at most N of this thread's committed stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;" ::: "memory"); }
+
+// This thread's writes to shared memory, made visible to the TMA unit's reads.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// ---- elements in shared memory ----
+
+// One value of a row of float32 or bfloat16, as float32.
+template <bool kBf16>
+__device__ __forceinline__ float lds_f32(const unsigned char* base, int i) {
+  return kBf16 ? __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(base)[i]) << 16)
+               : reinterpret_cast<const float*>(base)[i];
+}
+
+// Four consecutive floats, 16-byte aligned.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Four y values of consecutive channels into a row of x's dtype (bfloat16
+// rounded to nearest even, as torch rounds finite values).
+template <bool kBf16>
+__device__ __forceinline__ void sts_y4(unsigned char* base, int i, float4 v) {
+  if constexpr (kBf16) {
+    uint32_t lo, hi;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(lo) : "f"(v.y), "f"(v.x));
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(hi) : "f"(v.w), "f"(v.z));
+    *reinterpret_cast<uint2*>(base + 2 * i) = make_uint2(lo, hi);
   } else {
-    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) = v;
+    *reinterpret_cast<float4*>(base + 4 * i) = v;
   }
 }
 
-template <int ST, bool kCheckpoints>
-__global__ void __launch_bounds__(kDt * ST / kSpt)
-    ssm_scan_kernel(const void* __restrict__ dt, const void* __restrict__ x,
-                    const void* __restrict__ bm, const void* __restrict__ cm,
-                    const void* __restrict__ a, void* __restrict__ y, float* __restrict__ h_final,
-                    float* __restrict__ hstart, int64_t seq, int d_model, int64_t chunk,
-                    int n_dtiles, int flags) {
-  constexpr int kTpd = ST / kSpt;                      // threads per channel: one per warp
-  constexpr int kThreads = kDt * kTpd;                 // threads per block
-  constexpr int kRowLoads = kSteps * kDt / 4 / kThreads;  // 4-channel groups of dt (and x) per thread per tile
-  constexpr int kStLoads = kSteps * ST / 2 / kThreads;     // state pairs of B (and C) per thread per tile
-  static_assert(kRowLoads * kThreads * 4 == kSteps * kDt && kStLoads * kThreads * 2 == kSteps * ST, "tile split");
-  static_assert(kDt == 32 && kSpt == 2, "a warp is the block's 32 channels; one float4 of B and C");
+// ---- the kernel ----
 
-  // A warp is one group of kSpt states of all 32 channels (lane = channel),
-  // so its B and C reads are one address for the whole warp and its dt/x
-  // reads and y-part writes are consecutive words, free of bank conflicts.
-  // A step moves 28 bytes per lane (8 + 16 in, 4 out).
-  __shared__ __align__(16) float2 s_dtx[kSteps][kDt];
-  __shared__ __align__(16) float s_bc[kSteps][kTpd][2 * kSpt];
-  __shared__ __align__(16) float s_part[kSteps][kTpd][kDt];
+constexpr int kStates = 4;  // states per consumer thread
+constexpr int kCh = 32;     // channels per block, one per lane
+constexpr int kStages = 4;  // tiles in the ring
+constexpr int kBarBytes = 128;  // the ring's mbarriers, ahead of everything else
 
-  const bool dt_bf16 = flags & kDtBf16, x_bf16 = flags & kXBf16;
-  const bool bc_bf16 = flags & kBcBf16, a_bf16 = flags & kABf16;
-  const int tid = threadIdx.x;
-  const int64_t b = blockIdx.x / n_dtiles;
-  const int d0 = (blockIdx.x - static_cast<int>(b) * n_dtiles) * kDt;
-  const int dl = tid % kDt;  // this thread's channel in the block (its lane)
-  const int q = tid / kDt;   // and its group of kSpt states (its warp)
-  const int d = d0 + dl;
-  const bool live = d < d_model;
+constexpr int kParts = 3;  // buffers of the consumer warps' parts of y: tile i's are summed after tile i + 1
+constexpr int kYTiles = 4;  // y tiles between the consumers' sums and the producer's TMA stores
 
-  float a2[kSpt], h[kSpt];
+// Shared memory of one block: the ring's stages, then the buffers of the
+// consumer warps' parts of y, then the y tiles (every size a multiple of 128
+// bytes).  A block is kCh channels and ST / kStates consumer warps.
+template <int ST, bool kDtB, bool kXB>
+struct Layout {
+  static constexpr int kWarps = ST / kStates;
+  static constexpr int kDtBytes = kSteps * kCh * (kDtB ? 2 : 4);
+  static constexpr int kXBytes = kSteps * kCh * (kXB ? 2 : 4);  // x, and a y tile in x's dtype
+  static constexpr int kBcRawBytes = kSteps * ST * 2;            // B or C as bfloat16 bits
+  static constexpr int kBcBytes = kSteps * ST * 4;               // B or C as float32
+  // one stage
+  static constexpr int kDt = 0;
+  static constexpr int kX = kDt + kDtBytes;
+  static constexpr int kBRaw = kX + kXBytes;
+  static constexpr int kCRaw = kBRaw + kBcRawBytes;
+  static constexpr int kB = kCRaw + kBcRawBytes;
+  static constexpr int kC = kB + kBcBytes;
+  static constexpr int kStage = kC + kBcBytes;
+  // the whole block
+  static constexpr int kPart = kBarBytes + kStages * kStage;  // [kParts][kSteps][kWarps][kCh] float32
+  static constexpr int kPartFloats = kSteps * kWarps * kCh;
+  static constexpr int kY = kPart + kParts * 4 * kPartFloats;  // [kYTiles][kSteps][kCh] in x's dtype
+  static constexpr int kBytes = kY + kYTiles * kXBytes;
+  static_assert(kBytes <= 232448, "a block's shared memory on Hopper");  // 120 KB with every operand float32
+  static_assert(kDtBytes % 128 == 0 && kXBytes % 128 == 0 && kBcRawBytes % 128 == 0, "tile alignment");
+};
+
+constexpr int kGroup = 4;  // steps whose inputs are loaded together, a group ahead of their use
+
+// The inputs of one group of steps, as float32, for one channel and kStates states.
+struct Group {
+  float dt[kGroup], x[kGroup], b[kGroup][kStates], c[kGroup][kStates];
+};
+
+// Group g of the tile in stage `st`: dt and x of this thread's channel, B and
+// C of its warp's states (one address for the whole warp: a broadcast).
+template <int ST, bool kDtB, bool kXB, class L>
+__device__ __forceinline__ void load_group(Group& in, const unsigned char* st, int g, int q, int lane) {
 #pragma unroll
-  for (int j = 0; j < kSpt; ++j) {
-    a2[j] = live ? load_f32(a, static_cast<int64_t>(d) * ST + q * kSpt + j, a_bf16) * kLog2e : 0.f;
+  for (int u = 0; u < kGroup; ++u) {
+    const int t = g * kGroup + u;
+    in.dt[u] = lds_f32<kDtB>(st + L::kDt, t * kCh + lane);
+    in.x[u] = lds_f32<kXB>(st + L::kX, t * kCh + lane);
+    load4(reinterpret_cast<const float*>(st + L::kB) + t * ST + q * kStates, in.b[u]);
+    load4(reinterpret_cast<const float*>(st + L::kC) + t * ST + q * kStates, in.c[u]);
+  }
+}
+
+template <int ST, bool kDtB, bool kXB, bool kCkpt>
+__global__ void __launch_bounds__(32 * (ST / kStates + 1))
+    ssm_scan_kernel(const __grid_constant__ CUtensorMap tm_dt, const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_b, const __grid_constant__ CUtensorMap tm_c,
+                    const __grid_constant__ CUtensorMap tm_y, const void* __restrict__ a,
+                    float* __restrict__ h_final, float* __restrict__ hstart, int seq, int d_model, int chunk,
+                    int n_dtiles, int flags) {
+  using L = Layout<ST, kDtB, kXB>;
+  constexpr int kWarps = L::kWarps, kGroups = kSteps / kGroup;
+  constexpr int kSums = kSteps * kCh / 4 / (32 * kWarps);  // y values of 4 channels a lane sums per tile
+  static_assert(ST % kStates == 0 && 3 * kStages * 8 <= kBarBytes, "thread map");
+  static_assert(kSums >= 1 && kSums * 32 * kWarps * 4 == kSteps * kCh, "tile split");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* ready = loaded + kStages;
+  uint64_t* empty = ready + kStages;
+  unsigned char* ring = smem + kBarBytes;
+  float* parts = reinterpret_cast<float*>(smem + L::kPart);
+  unsigned char* ytiles = smem + L::kY;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / n_dtiles;
+  const int d0 = (blockIdx.x - b * n_dtiles) * kCh;
+  const int n_tiles = (seq - 1) / kSteps + 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&loaded[s], 1);      // the producer's arrive.expect_tx, then the copies' bytes
+      mbar_init(&ready[s], 32);      // every lane of the producer warp
+      mbar_init(&empty[s], kWarps);  // one lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier: the mbarriers exist
+
+  // Stage s = i % kStages holds tile i.  Its "empty" barrier completes a phase
+  // when every consumer warp has run tile i, stored its parts of tile i's y
+  // and summed its share of tile i - 1's y; after the last tile each warp
+  // sums its share of that tile's y and completes one more phase, as if for
+  // a tile n_tiles.
+  if (warp == kWarps) {
+    // ---- the producer warp: TMA loads, B and C to float32, TMA stores of y ----
+    const bool bc_bf16 = flags & kBcBf16;
+    const uint32_t tx = L::kDtBytes + L::kXBytes + 2 * kSteps * ST * (bc_bf16 ? 2 : 4);
+    auto issue = [&](int j) {  // tile j's inputs into stage j % kStages
+      if (lane == 0) {
+        const int s = j % kStages;
+        unsigned char* st = ring + s * L::kStage;
+        mbar_arrive_expect_tx(&loaded[s], tx);
+        tma_load(st + L::kDt, &tm_dt, d0, j * kSteps, b, &loaded[s]);
+        tma_load(st + L::kX, &tm_x, d0, j * kSteps, b, &loaded[s]);
+        tma_load(st + (bc_bf16 ? L::kBRaw : L::kB), &tm_b, 0, j * kSteps, b, &loaded[s]);
+        tma_load(st + (bc_bf16 ? L::kCRaw : L::kC), &tm_c, 0, j * kSteps, b, &loaded[s]);
+      }
+    };
+    for (int j = 0; j < kStages && j < n_tiles; ++j) issue(j);
+    // Iteration i readies tile i and retires tile i - 2: by then the
+    // consumers are on tile i - 1, so neither side waits on the other.
+    for (int i = 0; i < n_tiles + 3; ++i) {
+      const int j = i - 2;
+      if (j >= 0 && j <= n_tiles) {
+        mbar_wait(&empty[j % kStages], (j / kStages) & 1);  // tile j run, tile j - 1's y summed
+        if (j + kStages < n_tiles) issue(j + kStages);
+        if (lane == 0 && j >= 1) {
+          tma_store(&tm_y, ytiles + ((j - 1) % kYTiles) * L::kXBytes, d0, (j - 1) * kSteps, b);
+          bulk_commit();
+        }
+      }
+      if (i < n_tiles) {
+        const int s = i % kStages;
+        unsigned char* st = ring + s * L::kStage;
+        mbar_wait(&loaded[s], (i / kStages) & 1);
+        if (bc_bf16) {  // 4 values per lane and pass: 8-byte reads, 16-byte writes
+          const uint2* rb = reinterpret_cast<const uint2*>(st + L::kBRaw);
+          const uint2* rc = reinterpret_cast<const uint2*>(st + L::kCRaw);
+          float4* wb = reinterpret_cast<float4*>(st + L::kB);
+          float4* wc = reinterpret_cast<float4*>(st + L::kC);
+          for (int e = lane; e < kSteps * ST / 4; e += 32) {
+            const uint2 u = rb[e], v = rc[e];
+            wb[e] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                                __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+            wc[e] = make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                                __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+          }
+        }
+        // During tile i the consumers write tile i - 1's y into the y tile whose
+        // last store, of tile i - 1 - kYTiles, is at least the third most recent:
+        // at most the most recent may still read shared memory.
+        if (lane == 0) bulk_wait_read<1>();
+        __syncwarp();
+        mbar_arrive(&ready[s]);
+      }
+    }
+    if (lane == 0) bulk_wait_all();
+    return;
+  }
+
+  // ---- a consumer thread: kStates states (its warp's group q) of channel d0 + lane ----
+  const int q = warp;
+  const bool live = d0 + lane < d_model;
+  const bool a_bf16 = flags & kABf16;
+  float a2[kStates], h[kStates];
+#pragma unroll
+  for (int j = 0; j < kStates; ++j) {
+    a2[j] = live ? load_f32(a, static_cast<int64_t>(d0 + lane) * ST + q * kStates + j, a_bf16) * kLog2e : 0.f;
     h[j] = 0.f;
   }
-
-  // Tile loads: each thread takes groups of 4 channels of one step (one 16-
-  // or 8-byte load each of dt and x) and pairs of states (one load each of B
-  // and C); stage() converts them to float32 into shared memory.
-  uint4 p_dt[kRowLoads], p_x[kRowLoads];
-  uint2 p_b[kStLoads], p_c[kStLoads];
-  auto prefetch = [&](int64_t t0) {
-#pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int64_t t = t0 + e / (kDt / 4);
-      const int dd = d0 + 4 * (e % (kDt / 4));
-      const bool ok = t < seq && dd < d_model;  // d_model is a multiple of 4
-      const int64_t i = (b * seq + t) * d_model + dd;
-      p_dt[j] = ok ? raw4(dt, i, dt_bf16) : make_uint4(0u, 0u, 0u, 0u);
-      p_x[j] = ok ? raw4(x, i, x_bf16) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < kStLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int64_t t = t0 + e / (ST / 2);
-      const int64_t i = (b * seq + t) * ST + 2 * (e % (ST / 2));
-      p_b[j] = t < seq ? raw2(bm, i, bc_bf16) : make_uint2(0u, 0u);
-      p_c[j] = t < seq ? raw2(cm, i, bc_bf16) : make_uint2(0u, 0u);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const float4 vd = cvt4(p_dt[j], dt_bf16), vx = cvt4(p_x[j], x_bf16);
-      float4* row = reinterpret_cast<float4*>(&s_dtx[e / (kDt / 4)][4 * (e % (kDt / 4))]);
-      row[0] = make_float4(vd.x, vx.x, vd.y, vx.y);
-      row[1] = make_float4(vd.z, vx.z, vd.w, vx.w);
-    }
-#pragma unroll
-    for (int j = 0; j < kStLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int r = e / (ST / 2), s = 2 * (e % (ST / 2));
-      *reinterpret_cast<float2*>(&s_bc[r][s / kSpt][s % kSpt]) = cvt2(p_b[j], bc_bf16);
-      *reinterpret_cast<float2*>(&s_bc[r][s / kSpt][kSpt + s % kSpt]) = cvt2(p_c[j], bc_bf16);
-    }
-  };
-  // kGroup steps: first everything that does not depend on the state (the
-  // loads, the exponentials, the update terms), for all of them, then the
-  // state updates and this thread's parts of y into s_part.  A warp issues
-  // in order, so this is what keeps several exponentials and loads in flight.
-  auto steps = [&](int i0, int n) {
-    float dec[kGroup][kSpt], upd[kGroup][kSpt], cc[kGroup][kSpt];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      if (k < n) {
-        const float2 v = s_dtx[i0 + k][dl];
-        const float dx = v.x * v.y;
-        const float4 w = *reinterpret_cast<const float4*>(&s_bc[i0 + k][q][0]);
-        const float bc[2 * kSpt] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int j = 0; j < kSpt; ++j) {
-          dec[k][j] = ex2_approx(v.x * a2[j]);
-          upd[k][j] = dx * bc[j];
-          cc[k][j] = bc[kSpt + j];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      if (k < n) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kSpt; ++j) {
-          h[j] = fmaf(dec[k][j], h[j], upd[k][j]);
-          acc = fmaf(h[j], cc[k][j], acc);
-        }
-        s_part[i0 + k][q][dl] = acc;
-      }
-    }
-  };
-
-  const int64_t n_chunks = (seq + chunk - 1) / chunk;
-  float* ck = kCheckpoints ? hstart + (b * n_chunks * d_model + d) * ST + q * kSpt : nullptr;
+  const int n_chunks = (seq - 1) / chunk + 1;
+  float* ck = kCkpt ? hstart + (static_cast<int64_t>(b) * n_chunks * d_model + d0 + lane) * ST + q * kStates : nullptr;
   const int64_t ck_step = static_cast<int64_t>(d_model) * ST;
 
-  prefetch(0);
-  stage();
-  __syncthreads();
-  for (int64_t t0 = 0; t0 < seq; t0 += kSteps) {
-    if (t0 + kSteps < seq) prefetch(t0 + kSteps);  // in flight while this tile runs
-    if (kCheckpoints && t0 % chunk == 0) {  // the state at the start of a chunk
-      if (live) {
+  // This warp's share of tile j's y: the parts of the kWarps warps summed in
+  // warp order, 4 channels at a time, into a y tile in x's dtype.
+  auto sum_y = [&](int j) {
+    mbar_wait(&empty[j % kStages], (j / kStages) & 1);  // every warp's parts of tile j are written
+    const float4* pt = reinterpret_cast<const float4*>(parts + (j % kParts) * L::kPartFloats);
+    unsigned char* yt = ytiles + (j % kYTiles) * L::kXBytes;
+    float4 v[kSums];
 #pragma unroll
-        for (int j = 0; j < kSpt; ++j) ck[j] = h[j];
+    for (int r = 0; r < kSums; ++r) {  // every load ahead of every store
+      const int e = lane + 32 * (q + kWarps * r), t = e / (kCh / 4), c4 = e % (kCh / 4);
+      v[r] = pt[(t * kWarps) * (kCh / 4) + c4];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        const float4 u = pt[(t * kWarps + w) * (kCh / 4) + c4];
+        v[r].x += u.x, v[r].y += u.y, v[r].z += u.z, v[r].w += u.w;
       }
+    }
+#pragma unroll
+    for (int r = 0; r < kSums; ++r) {
+      const int e = lane + 32 * (q + kWarps * r);
+      sts_y4<kXB>(yt, (e / (kCh / 4)) * kCh + 4 * (e % (kCh / 4)), v[r]);
+    }
+    fence_proxy_async();  // this lane's y, visible to the producer's TMA store
+  };
+
+  auto stage_of = [&](int tile) { return ring + (tile % kStages) * L::kStage; };
+  Group cur, next;
+  mbar_wait(&ready[0], 0);
+  load_group<ST, kDtB, kXB, L>(cur, ring, 0, q, lane);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    if (kCkpt && (i * kSteps) % chunk == 0) {  // the state at the start of a chunk
+      if (live) store4(ck, h);
       ck += ck_step;
     }
-    if (t0 + kSteps <= seq) {  // a whole tile: fixed trip count
-#pragma unroll 2
-      for (int i = 0; i < kSteps; i += kGroup) steps(i, kGroup);
-    } else {  // the short last tile
-      const int n = static_cast<int>(seq - t0);
-      for (int i = 0; i < n; ++i) steps(i, 1);
-    }
-    __syncthreads();  // s_part is whole; nobody reads this tile's inputs any more
+    float* part = parts + (i % kParts) * L::kPartFloats + q * kCh + lane;
 #pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {  // y of 4 channels of one step: the sums of the parts
-      const int e = tid + j * kThreads;
-      const int r = e / (kDt / 4), c = 4 * (e % (kDt / 4));
-      const int64_t t = t0 + r;
-      if (t < seq && d0 + c < d_model) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int m = 0; m < kTpd; ++m) {
-          const float4 w = *reinterpret_cast<const float4*>(&s_part[r][m][c]);
-          v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
-        }
-        store4(y, (b * seq + t) * d_model + d0 + c, v, x_bf16);
+    for (int g = 0; g < kGroups; ++g) {
+      // The next group's inputs, this tile's or the next one's, come into
+      // registers while this group runs: their loads go out ahead of this
+      // group's stores of its parts, past which the compiler would not move
+      // them (one shared array, so it cannot tell the parts from the inputs).
+      if (g + 1 < kGroups) {
+        load_group<ST, kDtB, kXB, L>(next, stage_of(i), g + 1, q, lane);
+      } else if (i + 1 < n_tiles) {
+        mbar_wait(&ready[(i + 1) % kStages], ((i + 1) / kStages) & 1);
+        load_group<ST, kDtB, kXB, L>(next, stage_of(i + 1), 0, q, lane);
       }
-    }
-    stage();  // tile k + 1 (unused past the end)
-    __syncthreads();
-  }
-  if (live) {
 #pragma unroll
-    for (int j = 0; j < kSpt; ++j) h_final[(b * d_model + d) * ST + q * kSpt + j] = h[j];
+      for (int u = 0; u < kGroup; ++u) {
+        const float dx = cur.dt[u] * cur.x[u];
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kStates; ++j) {
+          h[j] = scan_step(h[j], cur.dt[u], a2[j], dx, cur.b[u][j]);
+          acc = fmaf(h[j], cur.c[u][j], acc);
+        }
+        part[(g * kGroup + u) * kWarps * kCh] = acc;
+      }
+      cur = next;
+    }
+    if (i >= 1) sum_y(i - 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // tile i run, its parts written, tile i - 1's y summed
   }
+  sum_y(n_tiles - 1);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[n_tiles % kStages]);  // the last tile's y summed
+  if (live) store4(h_final + (static_cast<int64_t>(b) * d_model + d0 + lane) * ST + q * kStates, h);
 }
 
-template <int ST, bool kCheckpoints>
-int launch_ck(const void* dt, const void* x, const void* bm, const void* cm, const void* a,
-              void* y, void* h_final, void* hstart, int64_t batch, int64_t seq, int d_model,
-              int64_t chunk, int flags, void* stream) {
-  const int64_t n_dtiles = (d_model + kDt - 1) / kDt;
-  if (batch * n_dtiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  ssm_scan_kernel<ST, kCheckpoints><<<static_cast<unsigned>(batch * n_dtiles), kDt * ST / kSpt, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      dt, x, bm, cm, a, y, static_cast<float*>(h_final), static_cast<float*>(hstart), seq, d_model,
-      chunk, static_cast<int>(n_dtiles), flags);
+// ---- the host side ----
+
+struct ScanArgs {
+  const void *dt, *x, *bm, *cm, *a;
+  void* y;
+  float *h_final, *hstart;
+  int batch, seq, d_model, st, chunk, flags;
+  cudaStream_t stream;
+};
+
+struct Maps {
+  CUtensorMap dt, x, b, c, y;
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
+// library links against the runtime only.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, seq, inner) tensor of 2- or 4-byte elements, boxes of (1, 32, box_inner).
+bool encode(CUtensorMap* map, const void* p, bool bf16, int inner, int seq, int batch, int box_inner) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {dims[0] * es, dims[0] * dims[1] * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), kSteps, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(p),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool encode_all(Maps& m, const ScanArgs& s) {
+  const bool dt16 = s.flags & kDtBf16, x16 = s.flags & kXBf16, bc16 = s.flags & kBcBf16;
+  return encode(&m.dt, s.dt, dt16, s.d_model, s.seq, s.batch, kCh) &&
+         encode(&m.x, s.x, x16, s.d_model, s.seq, s.batch, kCh) &&
+         encode(&m.b, s.bm, bc16, s.st, s.seq, s.batch, s.st) &&
+         encode(&m.c, s.cm, bc16, s.st, s.seq, s.batch, s.st) &&
+         encode(&m.y, s.y, x16, s.d_model, s.seq, s.batch, kCh);
+}
+
+template <int ST, bool kDtB, bool kXB, bool kCkpt>
+int launch_kernel(const Maps& m, const ScanArgs& s) {
+  using L = Layout<ST, kDtB, kXB>;
+  const auto kernel = ssm_scan_kernel<ST, kDtB, kXB, kCkpt>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_dtiles = (s.d_model + kCh - 1) / kCh;
+  if (static_cast<int64_t>(s.batch) * n_dtiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(s.batch * n_dtiles), 32 * (L::kWarps + 1), L::kBytes, s.stream>>>(
+      m.dt, m.x, m.b, m.c, m.y, s.a, s.h_final, s.hstart, s.seq, s.d_model, s.chunk, n_dtiles, s.flags);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int ST, bool kDtB, bool kXB>
+int launch_ck(const Maps& m, const ScanArgs& s) {
+  return s.hstart ? launch_kernel<ST, kDtB, kXB, true>(m, s) : launch_kernel<ST, kDtB, kXB, false>(m, s);
+}
+
 template <int ST>
-int launch(const void* dt, const void* x, const void* bm, const void* cm, const void* a, void* y,
-           void* h_final, void* hstart, int64_t batch, int64_t seq, int d_model, int64_t chunk,
-           int flags, void* stream) {
-  if (hstart == nullptr) {
-    return launch_ck<ST, false>(dt, x, bm, cm, a, y, h_final, hstart, batch, seq, d_model, chunk, flags, stream);
+int launch_dtypes(const Maps& m, const ScanArgs& s) {
+  switch (s.flags & (kDtBf16 | kXBf16)) {
+    case 0: return launch_ck<ST, false, false>(m, s);
+    case kDtBf16: return launch_ck<ST, true, false>(m, s);
+    case kXBf16: return launch_ck<ST, false, true>(m, s);
+    default: return launch_ck<ST, true, true>(m, s);
   }
-  return launch_ck<ST, true>(dt, x, bm, cm, a, y, h_final, hstart, batch, seq, d_model, chunk, flags, stream);
+}
+
+// What a launch must satisfy: shapes at least 1, st 8 or 16, the (B, S, D)
+// rows and every operand 16-byte aligned (the TMA's rule for its maps), and
+// with checkpoints a chunk that is a multiple of the tile.
+bool valid(const void* dt, const void* x, const void* bm, const void* cm, const void* a, const void* y,
+           const void* hstart, int64_t batch, int64_t seq, int d_model, int st, int64_t chunk, int flags) {
+  const int64_t row_dt = static_cast<int64_t>(d_model) * (flags & kDtBf16 ? 2 : 4);
+  const int64_t row_x = static_cast<int64_t>(d_model) * (flags & kXBf16 ? 2 : 4);
+  const void* ptrs[6] = {dt, x, bm, cm, a, y};
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  }
+  return batch >= 1 && batch <= INT32_MAX && seq >= 1 && seq <= INT32_MAX - kSteps && d_model >= 1 && chunk >= 1 &&
+         chunk <= INT32_MAX && (st == 8 || st == 16) && row_dt % 16 == 0 && row_x % 16 == 0 &&
+         (hstart == nullptr || chunk % kSteps == 0);
 }
 
 }  // namespace
@@ -279,21 +524,22 @@ int launch(const void* dt, const void* x, const void* bm, const void* cm, const 
 extern "C" {
 
 // One K9 launch on `stream`.  st must be 8 or 16; batch, seq and d_model at
-// least 1, d_model a multiple of 4; chunk a positive multiple of 32 when
+// least 1, d_model times the element size of dt and of x a multiple of 16
+// bytes, every operand 16-byte aligned; chunk a positive multiple of 32 when
 // hstart is not null; y, h_final and hstart (or null) preallocated.  Returns
 // a cudaError_t code, 0 when the launch was accepted.
-int ssm_scan_fwd(const void* dt, const void* x, const void* bm, const void* cm, const void* a,
-                 void* y, void* h_final, void* hstart, int64_t batch, int64_t seq, int d_model,
-                 int st, int64_t chunk, int flags, void* stream) {
-  if (batch < 1 || seq < 1 || d_model < 1 || d_model % 4 || chunk < 1 ||
-      (hstart != nullptr && chunk % kSteps)) {
+int ssm_scan_fwd(const void* dt, const void* x, const void* bm, const void* cm, const void* a, void* y,
+                 void* h_final, void* hstart, int64_t batch, int64_t seq, int d_model, int st, int64_t chunk,
+                 int flags, void* stream) {
+  if (!valid(dt, x, bm, cm, a, y, hstart, batch, seq, d_model, st, chunk, flags)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (st) {
-    case 8: return launch<8>(dt, x, bm, cm, a, y, h_final, hstart, batch, seq, d_model, chunk, flags, stream);
-    case 16: return launch<16>(dt, x, bm, cm, a, y, h_final, hstart, batch, seq, d_model, chunk, flags, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const ScanArgs s{dt, x, bm, cm, a, y, static_cast<float*>(h_final), static_cast<float*>(hstart),
+                   static_cast<int>(batch), static_cast<int>(seq), d_model, st, static_cast<int>(chunk), flags,
+                   static_cast<cudaStream_t>(stream)};
+  Maps m;
+  if (!encode_all(m, s)) return static_cast<int>(cudaErrorInvalidValue);
+  return st == 16 ? launch_dtypes<16>(m, s) : launch_dtypes<8>(m, s);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -1,8 +1,8 @@
 // What the selective-scan kernels share: K9 (ssm_scan.cu) and K10
-// (ssm_scan_bwd.cu).  The tile and block shape, the dtype flags, the loads that
-// return raw bits and their conversions, and the exponential.  K10 recomputes
-// the states that K9 ran with these same functions and the same expressions,
-// so that the recomputed states are K9's own, bit for bit.
+// (ssm_scan_bwd.cu).  The tile length, the dtype flags, the load of one
+// element as float32, and the step of one state.  K10 recomputes the states
+// that K9 ran with scan_step itself, so the recomputed states are K9's own,
+// bit for bit, whatever thread map either kernel takes.
 
 #pragma once
 
@@ -11,11 +11,8 @@
 
 namespace {
 
-constexpr int kSteps = 32;  // time steps staged per tile
-constexpr int kDt = 32;     // channels per block
+constexpr int kSteps = 32;  // time steps per tile: K9's checkpoints fall on tile starts
 constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr int kSpt = 2;     // states per thread: a block is st / 2 warps
 
 // flags: which inputs are bfloat16 (the others are float32)
 constexpr int kDtBf16 = 1;
@@ -28,49 +25,24 @@ __device__ __forceinline__ float load_f32(const void* p, int64_t i, bool bf16) {
               : static_cast<const float*>(p)[i];
 }
 
-// The loads below return raw bits and the conversion to float32 is separate:
-// a conversion next to its load (inside the dtype branch) would wait for the
-// load there, where the tile's prefetch must stay in flight.
-
-// Elements i, i + 1 (i even): one 8-byte (float32) or 4-byte (bfloat16) load.
-__device__ __forceinline__ uint2 raw2(const void* p, int64_t i, bool bf16) {
-  uint2 r;
-  if (bf16) {
-    r.x = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(p) + i);
-  } else {
-    r = *reinterpret_cast<const uint2*>(static_cast<const float*>(p) + i);
-  }
-  return r;
-}
-
-__device__ __forceinline__ float2 cvt2(uint2 r, bool bf16) {
-  return bf16 ? make_float2(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u))
-              : make_float2(__uint_as_float(r.x), __uint_as_float(r.y));
-}
-
-// Elements i .. i + 3 (i a multiple of 4): one 16-byte or 8-byte load.
-__device__ __forceinline__ uint4 raw4(const void* p, int64_t i, bool bf16) {
-  uint4 r;
-  if (bf16) {
-    const uint2 w = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
-    r.x = w.x, r.y = w.y;
-  } else {
-    r = *reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
-  }
-  return r;
-}
-
-__device__ __forceinline__ float4 cvt4(uint4 r, bool bf16) {
-  return bf16 ? make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                            __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u))
-              : make_float4(__uint_as_float(r.x), __uint_as_float(r.y), __uint_as_float(r.z),
-                            __uint_as_float(r.w));
-}
-
 __device__ __forceinline__ float ex2_approx(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
+}
+
+// exp(dt * a) with a2 = a * log2(e): one multiply and one ex2.approx.ftz on
+// the special-function unit.  Its relative error is a few float32 ulps where
+// the decay matters (|dt * a| of order 1); results below 2^-126 flush to 0.
+__device__ __forceinline__ float scan_decay(float dt, float a2) { return ex2_approx(dt * a2); }
+
+// One state's step of the recurrence, h <- exp(dt * a) * h + (dt * x) * b,
+// with dx = dt * x formed once per (b, t, d): K9's and K10's states come from
+// this function alone.  Past the end of the sequence the inputs are zeros:
+// dt = 0 gives a decay of 1 and an update of 0, and the state carries over
+// unchanged.
+__device__ __forceinline__ float scan_step(float h, float dt, float a2, float dx, float b) {
+  return fmaf(scan_decay(dt, a2), h, dx * b);
 }
 
 }  // namespace

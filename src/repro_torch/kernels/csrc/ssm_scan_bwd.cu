@@ -28,16 +28,16 @@
 // channel (lane = channel, warp = pair of states, st / 2 warps).
 //  * Recompute.  The checkpoints are K9's at every tile start (the caller asks
 //    K9 for a chunk of 32), so a tile's 33 states are recomputed from one
-//    checkpoint into registers (66 floats per thread), with K9's own
-//    expressions (ex2.approx of dt * (a * log2 e), the fma of the update):
-//    the recomputed states are K9's, bit for bit.  The TPU's (chunk + 1, 32,
+//    checkpoint into registers (66 floats per thread) by K9's own step
+//    function, scan_step of ssm_scan.cuh (and the backward's decay by its
+//    scan_decay): the recomputed states are K9's, bit for bit.  The TPU's (chunk + 1, 32,
 //    st) buffer at chunk 128 would be 264 KB, more than a block's 227 KB of
 //    shared memory; a 32-step interval costs K9 one more write of the state
 //    per tile and this kernel one read (4 bytes per (b, d, s) every 32 steps:
 //    67 MB at (1, 4096, 8192, 16), a quarter of K9's other bytes there).
 //  * The tile's inputs (dt, x, dy per channel, B and C per state) are staged in
 //    shared memory as float32 while the next tile back is loaded into
-//    registers as raw bits, as in K9.
+//    registers as raw bits.
 //  * Reductions, none with atomics, so that two launches give the same bits:
 //    - over the st states of a channel (ddt, dx): each thread writes its part
 //      (sum over its 2 states) per step to shared memory, and after the tile
@@ -67,6 +67,47 @@
 namespace {
 
 constexpr int kDyBf16 = 16;  // flags: dy is bfloat16
+constexpr int kDt = 32;      // channels per block
+constexpr int kSpt = 2;      // states per thread: a block is st / 2 warps
+
+// The loads below return raw bits and the conversion to float32 is separate:
+// a conversion next to its load (inside the dtype branch) would wait for the
+// load there, where the tile's prefetch must stay in flight.
+
+// Elements i, i + 1 (i even): one 8-byte (float32) or 4-byte (bfloat16) load.
+__device__ __forceinline__ uint2 raw2(const void* p, int64_t i, bool bf16) {
+  uint2 r;
+  if (bf16) {
+    r.x = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(p) + i);
+  } else {
+    r = *reinterpret_cast<const uint2*>(static_cast<const float*>(p) + i);
+  }
+  return r;
+}
+
+__device__ __forceinline__ float2 cvt2(uint2 r, bool bf16) {
+  return bf16 ? make_float2(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u))
+              : make_float2(__uint_as_float(r.x), __uint_as_float(r.y));
+}
+
+// Elements i .. i + 3 (i a multiple of 4): one 16-byte or 8-byte load.
+__device__ __forceinline__ uint4 raw4(const void* p, int64_t i, bool bf16) {
+  uint4 r;
+  if (bf16) {
+    const uint2 w = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
+    r.x = w.x, r.y = w.y;
+  } else {
+    r = *reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
+  }
+  return r;
+}
+
+__device__ __forceinline__ float4 cvt4(uint4 r, bool bf16) {
+  return bf16 ? make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                            __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u))
+              : make_float4(__uint_as_float(r.x), __uint_as_float(r.y), __uint_as_float(r.z),
+                            __uint_as_float(r.w));
+}
 
 template <int ST>
 struct alignas(16) BwdShared {
@@ -205,7 +246,7 @@ __global__ void __launch_bounds__(kDt * ST / kSpt)
       const float dtx = v.x * v.y;
       const float bj[kSpt] = {w.x, w.y};
 #pragma unroll
-      for (int j = 0; j < kSpt; ++j) h[i + 1][j] = fmaf(ex2_approx(v.x * a2[j]), h[i][j], dtx * bj[j]);
+      for (int j = 0; j < kSpt; ++j) h[i + 1][j] = scan_step(h[i][j], v.x, a2[j], dtx, bj[j]);
     }
 
     // 2) the reverse recurrence, 4 steps at a time; g enters as dL/dh after the tile
@@ -224,7 +265,7 @@ __global__ void __launch_bounds__(kDt * ST / kSpt)
         for (int j = 0; j < kSpt; ++j) {
           vals[4 * k + 2 + j] = h[i + 1][j] * v.z;
           g[j] = fmaf(v.z, cj[j], g[j]);
-          const float dec = ex2_approx(v.x * a2[j]);
+          const float dec = scan_decay(v.x, a2[j]);
           const float gdec = g[j] * h[i][j] * dec;
           p1 = fmaf(gdec, av[j], p1);
           p2 = fmaf(g[j], bj[j], p2);

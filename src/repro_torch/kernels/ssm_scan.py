@@ -144,10 +144,8 @@ def ssm_scan(
     device.
 
     A CUDA tensor launches the kernel (and counts one in
-    ``ssm_scan.launches``); the kernel takes ``st`` in ``STATES``, ``D`` a
-    multiple of 4 and operands that start 16-byte aligned (it reads 4
-    channels at a time), and with ``checkpoints`` a ``chunk`` that is a
-    multiple of ``TILE``.  A CPU tensor takes :func:`ssm_scan_ref`.
+    ``ssm_scan.launches``) on the operands :func:`check_kernel_rules`
+    passes, and raises on others.  A CPU tensor takes :func:`ssm_scan_ref`.
 
     When grad mode is on and an operand requires a gradient, the call goes
     through :class:`SsmScanFunction`: K9 with checkpoints every
@@ -164,20 +162,34 @@ def ssm_scan(
     return _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
 
 
-def _forward(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool):
-    """One K9 launch on a CUDA tensor, :func:`ssm_scan_ref` on a CPU one."""
-    if x.device.type == "cpu":
-        return ssm_scan_ref(dt, x, bmat, cmat, a, chunk=chunk, checkpoints=checkpoints)
-    bsz, s, d = x.shape
-    st = bmat.shape[-1]
+def check_kernel_rules(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool) -> None:
+    """Raise ``ValueError`` unless K9 takes these operands (already through
+    :func:`_check`): a state width in ``STATES``; ``D`` times the element
+    size of ``dt`` and of ``x`` a multiple of 16 bytes, and every operand
+    16-byte aligned (the kernel reads them through TMA tensor maps, whose
+    rows and bases must be); with ``checkpoints``, a ``chunk`` that is a
+    multiple of ``TILE``.  Plain Python on the shapes, dtypes and
+    addresses, so it runs on a CPU tensor too."""
+    st, d = bmat.shape[-1], x.shape[-1]
     if st not in STATES:
         raise ValueError(f"ssm_scan: the kernel takes a state width in {STATES}, got {st}")
-    if d % 4:
-        raise ValueError(f"ssm_scan: the kernel takes D a multiple of 4, got {d}")
+    for name, t in (("dt", dt), ("x", x)):
+        if d * t.element_size() % 16:
+            raise ValueError(f"ssm_scan: the kernel takes D times the element size of {name} a multiple of 16 "
+                             f"bytes, got D = {d} in {t.dtype}")
     if checkpoints and chunk % TILE:
         raise ValueError(f"ssm_scan: with checkpoints the kernel takes a chunk that is a multiple of {TILE}, got {chunk}")
     if any(t.data_ptr() % 16 for t in (dt, x, bmat, cmat, a)):
         raise ValueError("ssm_scan: the kernel takes operands that start 16-byte aligned")
+
+
+def _forward(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool):
+    """One K9 launch on a CUDA tensor, :func:`ssm_scan_ref` on a CPU one."""
+    if x.device.type == "cpu":
+        return ssm_scan_ref(dt, x, bmat, cmat, a, chunk=chunk, checkpoints=checkpoints)
+    check_kernel_rules(dt, x, bmat, cmat, a, chunk, checkpoints)
+    bsz, s, d = x.shape
+    st = bmat.shape[-1]
     y = torch.empty((bsz, s, d), dtype=x.dtype, device=x.device)
     h_final = torch.empty((bsz, d, st), dtype=torch.float32, device=x.device)
     hstart = (torch.empty((bsz, -(-s // chunk), d, st), dtype=torch.float32, device=x.device)

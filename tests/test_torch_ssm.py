@@ -100,6 +100,60 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     assert ks.xla_scan_hbm_bytes(1, 4096, 8192, 16) == jax_scan.xla_scan_hbm_bytes(1, 4096, 8192, 16)
 
 
+def _aligned(shape, dtype, offset=0):
+    """A zero tensor of ``shape`` whose storage starts ``offset`` elements
+    past a fresh (aligned) allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+# (B, S, D, st), the dtypes of dt and x, chunk, checkpoints, the offset of x's storage in elements,
+# and the message the rules raise with (None: K9 takes them)
+KERNEL_RULE_CASES = [
+    ((1, 5, 8, 16), torch.float32, torch.bfloat16, 128, False, 0, None),  # 8 bf16 = 16 bytes
+    ((2, 3, 24, 8), torch.bfloat16, torch.bfloat16, 32, True, 0, None),
+    ((1, 4, 4, 16), torch.float32, torch.float32, 64, True, 0, None),  # 4 float32 = 16 bytes
+    ((1, 4, 4, 16), torch.float32, torch.bfloat16, 128, False, 0, "element size of x"),
+    ((1, 4, 20, 16), torch.bfloat16, torch.float32, 128, False, 0, "element size of dt"),
+    ((1, 4, 12, 8), torch.float32, torch.bfloat16, 128, False, 0, "element size of x"),
+    ((1, 4, 8, 4), torch.float32, torch.bfloat16, 128, False, 0, "state width"),
+    ((1, 4, 8, 16), torch.float32, torch.bfloat16, 48, True, 0, "multiple of 32"),
+    ((1, 4, 8, 16), torch.float32, torch.bfloat16, 48, False, 0, None),  # no checkpoints: any chunk
+    ((1, 4, 8, 16), torch.float32, torch.bfloat16, 128, False, 4, "16-byte aligned"),
+]
+
+
+@pytest.mark.parametrize("shape,dt_dtype,x_dtype,chunk,checkpoints,offset,raises", KERNEL_RULE_CASES)
+def test_kernel_rules_on_cpu_shapes_and_dtypes(shape, dt_dtype, x_dtype, chunk, checkpoints, offset, raises):
+    bsz, s, d, st = shape
+    dt, x = _aligned((bsz, s, d), dt_dtype), _aligned((bsz, s, d), x_dtype, offset)
+    bm, cm, a = _aligned((bsz, s, st), torch.bfloat16), _aligned((bsz, s, st), torch.bfloat16), _aligned((d, st), torch.float32)
+    if raises is None:
+        ks.check_kernel_rules(dt, x, bm, cm, a, chunk, checkpoints)
+    else:
+        with pytest.raises(ValueError, match=raises):
+            ks.check_kernel_rules(dt, x, bm, cm, a, chunk, checkpoints)
+    ks.ssm_scan.launches = 0
+    ks.ssm_scan(dt, x, bm, cm, a, chunk=chunk, checkpoints=checkpoints)  # the CPU takes the plain version all the same
+    assert ks.ssm_scan.launches == 0
+
+
+def test_ref_checkpoints_at_chunk_32_and_128_agree():
+    """The plain version's states at chunk starts of 32 and of 128 steps are
+    the same states where the starts coincide (every fourth of 32), and the
+    checkpoints change neither y nor h_final."""
+    args = [torch.from_numpy(t) for t in _scan_inputs(2, 300, 8, 4, seed=3)]
+    y32, h32, hs32 = ks.ssm_scan_ref(*args, chunk=32, checkpoints=True)
+    y128, h128, hs128 = ks.ssm_scan_ref(*args, chunk=128, checkpoints=True)
+    y, h = ks.ssm_scan_ref(*args, chunk=128)
+    assert hs32.shape == (2, 10, 8, 4) and hs128.shape == (2, 3, 8, 4)
+    assert torch.equal(hs32[:, ::4], hs128)
+    for got in (y32, y128):
+        assert torch.equal(got, y)
+    for got in (h32, h128):
+        assert torch.equal(got, h)
+
+
 # ---------------------------------------------------------------------------
 # the Mamba block, on one layer of reduced falcon-mamba (float32)
 # ---------------------------------------------------------------------------
