@@ -1235,30 +1235,31 @@ CMP_RTOL = 3e-2
 TRAIN_REF_TOL = 1e-4
 
 
-def bwd_bound(bsz: int, s: int, d: int, st: int, sizes) -> dict:
+def bwd_bound(bsz: int, s: int, d: int, st: int, sizes, work_floats: int) -> dict:
     """Least time of one K10 call: each of the function's inputs read once
     and each of its outputs written once (``sizes`` = bytes of dt, x, dy,
     B and C, a; the checkpoints every 32 steps, dh_final and the five
     gradients float32), against 20 float32 operations per state and step
     (5 of the recompute, 15 of the reverse pass) at the card's float32
-    rate outside the tensor cores.  ``partial_bytes`` are the per-block
-    partials of dB and dC (B, D / 32, S, st) and of dA (B, D, st) that
-    K10's reduction design writes and reads again: overhead of the design,
-    not in the bound.  ``exp_unit_ms`` is the time of its exponentials alone
-    on the special-function units: two per state and step (the recompute's
-    and the reverse pass's decay), above the byte bound at the train step's
-    shape."""
+    rate outside the tensor cores.  ``partial_bytes`` are K10's workspace
+    of ``work_floats`` float32 (its partials of dB and dC, one per block
+    of 64 channels, and of dA; ``ssm_scan.bwd_work_floats``), written
+    once and read once: overhead of the design, not in the bound.
+    ``exp_unit_ms`` is the time of the exponentials alone on the
+    special-function units: one per state and step, the least the function
+    needs (the reverse pass can use the decay the recompute formed; a
+    design that forms it again doubles this time)."""
     dt_b, x_b, dy_b, bc_b, a_b = sizes
     n, ns = bsz * s * d, bsz * s * st
     n_ck = bsz * -(-s // 32) * d * st
     nbytes = (n * (dt_b + x_b + dy_b) + 2 * ns * bc_b + d * st * a_b + 4 * n_ck + 4 * bsz * d * st
               + 4 * (2 * n + 2 * ns + d * st))
-    partial_bytes = 2 * 4 * (2 * bsz * -(-d // 32) * s * st + bsz * d * st)
+    partial_bytes = 2 * 4 * work_floats
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 20 * n * st / SCALAR_OPS_PER_S * 1e3
     return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes, "partial_bytes": partial_bytes,
-            "exp_unit_ms": 2 * n * st / SFU_EX2_PER_S * 1e3}
+            "exp_unit_ms": n * st / SFU_EX2_PER_S * 1e3}
 
 
 def _fingerprints(tree):
@@ -1495,7 +1496,8 @@ def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d
            "bound_ms": None, "bound_by": None, "library_ms": None, "step_ms": ms, "peak_gb": peak_gb}
     if on_card:
         sizes = tuple(t.element_size() for t in (dt0, x0, dy0, b0, a0))
-        bound = bwd_bound(1, seq, cfg.d_inner, cfg.ssm_state, sizes)
+        bound = bwd_bound(1, seq, cfg.d_inner, cfg.ssm_state, sizes,
+                          ks.bwd_work_floats(1, seq, cfg.d_inner, cfg.ssm_state))
         res.update(ms=time_ms(lambda: ks.ssm_scan_bwd(*args0, dy0, dh0, chunk=chunk)),
                    plain_ms=time_ms(lambda: ks.ssm_scan_bwd_ref(*args0, dy0, dh0, chunk=chunk), iters=1),
                    bound_ms=bound["ms"], bound_by=bound["by"])
@@ -1503,8 +1505,9 @@ def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d
               f"kernel_ms {res['ms']:.5f}  plain_ms {res['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} "
               f"({bound['by']}; bytes {bound['bytes_ms']:.6f}, float32 ops {bound['ops_ms']:.6f}; the function's "
               f"{bound['bytes'] / 1e6:.1f} MB, and the design's partials of dB, dC and dA another "
-              f"{bound['partial_bytes'] / 1e6:.1f} MB written and read, not in the bound; exponentials on the "
-              f"SFUs {bound['exp_unit_ms']:.6f}, kernel {res['ms'] / bound['exp_unit_ms']:.3f}x that floor); K10 in all "
+              f"{bound['partial_bytes'] / 1e6:.1f} MB written and read, not in the bound; one exponential per state "
+              f"and step on the SFUs {bound['exp_unit_ms']:.6f}); kernel {res['ms'] / bound['ms']:.3f}x the byte "
+              f"bound, {res['ms'] / bound['exp_unit_ms']:.3f}x the exponentials' floor; K10 in all "
               f"{res['ms'] * layers:.2f} ms of a {ms:.1f} ms step (CUDA events)")
         from repro_torch.launch.profile import profile_train_step, report_train
 
@@ -1536,6 +1539,37 @@ def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d
     return res
 
 
+def ptxas_kernels(log: str) -> list:
+    """``(kernel, its "Used" line, its spill line)`` for each kernel of a
+    ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
+    out, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            kernel = line.split(" for ", 1)[1].strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            out.append((kernel, line.split(":", 1)[1].strip(), spills))
+    return out
+
+
+def k10_registers(log: str) -> str:
+    """K10's registers a thread and spill bytes, per state width, over its
+    dtype instantiations (the block kernel's mangled name carries ST first)."""
+    import re
+
+    parts = []
+    for st in (16, 8):
+        rows = [(u, sp) for k, u, sp in ptxas_kernels(log) if f"ssm_scan_bwd_kernelILi{st}E" in k]
+        check(bool(rows) or not log, f"no K10 kernel of state {st} in the ptxas log")
+        if rows:
+            regs = sorted({int(re.search(r"Used (\d+) registers", u).group(1)) for u, _ in rows})
+            spill = sum(int(n) for _, sp in rows for n in re.findall(r"(\d+) bytes spill", sp))
+            parts.append(f"state {st}: {len(rows)} dtype instantiations, {'/'.join(map(str, regs))} registers a "
+                         f"thread, {spill} bytes of spill stores and loads in all")
+    return "K10 (ptxas -v): " + ("; ".join(parts) if parts else "built before this run, so no ptxas log")
+
+
 def main() -> int:
     import torch
 
@@ -1555,14 +1589,9 @@ def main() -> int:
     print(f"build: {len(built)} sources in {time.perf_counter() - t0:.2f} s, one nvcc each, all started together")
     for name, b in built.items():
         print(f"build: {name}.cu -> {b.path.name} in {b.seconds:.2f} s")
-        kernel, spills = "?", ""
-        for line in b.ptxas.splitlines():  # ptxas -v: name, then spills, then registers
-            if "Function properties for" in line:
-                kernel = line.split(" for ", 1)[1].strip()
-            elif "spill" in line:
-                spills = line.strip()
-            elif "Used" in line:
-                print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+        for kernel, used, spills in ptxas_kernels(b.ptxas):
+            print(f"  ptxas {kernel}: {used}; {spills}")
+    k10_regs = k10_registers(built["ssm_scan_bwd"].ptxas)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1573,6 +1602,7 @@ def main() -> int:
     phase_reference()
     ssm = phase_ssm()
     train = phase_train()
+    print(f"train: {k10_regs}")
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",

@@ -1,5 +1,5 @@
 // What the selective-scan kernels share: K9 (ssm_scan.cu) and K10
-// (ssm_scan_bwd.cu).  The tile length, the dtype flags, the load of one
+// (ssm_scan_bwd.cu).  The tile length, the dtype flags, the loads of one
 // element as float32, and the step of one state.  K10 recomputes the states
 // that K9 ran with scan_step itself, so the recomputed states are K9's own,
 // bit for bit, whatever thread map either kernel takes.
@@ -25,6 +25,13 @@ __device__ __forceinline__ float load_f32(const void* p, int64_t i, bool bf16) {
               : static_cast<const float*>(p)[i];
 }
 
+// One value of a row in shared memory of float32 or bfloat16, as float32.
+template <bool kBf16>
+__device__ __forceinline__ float lds_f32(const unsigned char* base, int i) {
+  return kBf16 ? __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(base)[i]) << 16)
+               : reinterpret_cast<const float*>(base)[i];
+}
+
 __device__ __forceinline__ float ex2_approx(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
@@ -40,9 +47,13 @@ __device__ __forceinline__ float scan_decay(float dt, float a2) { return ex2_app
 // with dx = dt * x formed once per (b, t, d): K9's and K10's states come from
 // this function alone.  Past the end of the sequence the inputs are zeros:
 // dt = 0 gives a decay of 1 and an update of 0, and the state carries over
-// unchanged.
+// unchanged.  The four-argument form takes the decay, scan_decay(dt, a2),
+// already formed: K10 keeps it for its reverse pass, so the step and the
+// gradient share one exponential and the state is the same bits.
+__device__ __forceinline__ float scan_step(float h, float dec, float dx, float b) { return fmaf(dec, h, dx * b); }
+
 __device__ __forceinline__ float scan_step(float h, float dt, float a2, float dx, float b) {
-  return fmaf(scan_decay(dt, a2), h, dx * b);
+  return scan_step(h, scan_decay(dt, a2), dx, b);
 }
 
 }  // namespace

@@ -12,110 +12,113 @@
 // checkpoints).  Given dy = dL/dy (B, S, D) and dh_final = dL/dh_{S-1}
 // (B, D, st), this kernel walks the sequence backwards with
 //     g_t = dL/dh_t = g_{t+1} * exp(dt_{t+1} a) + dy_t * C_t      (g_S = dh_final)
-//     gdec = g_t * h_{t-1} * exp(dt_t a)                (dL/d(dt_t a) through exp)
+//     gdec = g_t * exp(dt_t a) * h_{t-1}                (dL/d(dt_t a) through exp)
 //     ddt_t = sum_s gdec * a + x_t * sum_s g_t * B_t,  dx_t = dt_t * sum_s g_t * B_t
 //     dB_t[s] = sum_d g_t * dt_t x_t,  dC_t[s] = sum_d h_t * dy_t,
 //     dA[d, s] = sum_b sum_t dt_t * gdec
 // and writes the five gradients in float32: ddt, dx (B, S, D), dB, dC (B, S, st),
 // dA (D, st).  Inputs are read in their own dtypes (float32 or bfloat16, named
-// by `flags`), as K9 reads them, and converted to float32 in registers.
+// by `flags`) and converted to float32 in registers.
 //
 // Design.  The TPU kernel walks a (batch, seq chunk, d tile) grid in order,
 // the seq chunks reversed, keeps (chunk + 1, d_tile, st) recomputed states in
-// VMEM and accumulates dB, dC and dA across grid steps.  Here, as in K9, a
-// block owns one (b, 32 channels) and walks the whole sequence itself, tiles
-// of 32 steps from the last to the first; a thread holds 2 states of one
-// channel (lane = channel, warp = pair of states, st / 2 warps).
-//  * Recompute.  The checkpoints are K9's at every tile start (the caller asks
-//    K9 for a chunk of 32), so a tile's 33 states are recomputed from one
-//    checkpoint into registers (66 floats per thread) by K9's own step
-//    function, scan_step of ssm_scan.cuh (and the backward's decay by its
-//    scan_decay): the recomputed states are K9's, bit for bit.  The TPU's (chunk + 1, 32,
-//    st) buffer at chunk 128 would be 264 KB, more than a block's 227 KB of
-//    shared memory; a 32-step interval costs K9 one more write of the state
-//    per tile and this kernel one read (4 bytes per (b, d, s) every 32 steps:
-//    67 MB at (1, 4096, 8192, 16), a quarter of K9's other bytes there).
-//  * The tile's inputs (dt, x, dy per channel, B and C per state) are staged in
-//    shared memory as float32 while the next tile back is loaded into
-//    registers as raw bits.
-//  * Reductions, none with atomics, so that two launches give the same bits:
-//    - over the st states of a channel (ddt, dx): each thread writes its part
-//      (sum over its 2 states) per step to shared memory, and after the tile
-//      the parts are summed in warp order;
-//    - over the 32 channels of the block (dB, dC): per group of 4 steps a
-//      warp's 16 values (4 steps x {dB, dC} x 2 states) are summed across the
-//      lanes by a butterfly reduce-scatter (15 + 1 shuffles), then written
-//      per block to a partial (B, D / 32, S, st), one per kind;
-//    - over the blocks' partials: a second kernel of this source sums the
-//      D / 32 partials of dB and dC, and the B partials of dA (B, D, st),
-//      each in a fixed order.
-//  * The tail: S need not be a multiple of 32.  A short last tile is staged
-//    with zeros past the end (dt = 0 gives exp = 1 and an update of 0, so the
-//    state is carried unchanged), and nothing past the end is written.
-//    Channels past D (D a multiple of 4, not of 32) read zeros and write
-//    nothing.  Element offsets are 64-bit.
+// VMEM and accumulates dB, dC and dA across grid steps.  Here a block owns one
+// (b, 64 channels) and walks the whole sequence itself, tiles of 32 steps
+// from the last to the first, as K9 walks it forwards.
+//  * Threads.  A warp is one pair of states of 32 channels (lane = channel),
+//    so its reads of B and C are one address (a broadcast); a block is st / 2
+//    such warps for each half of its 64 channels and nothing else: at st = 16
+//    16 warps, 128 registers a thread, 196 KB of shared memory, one block an
+//    SM, and B = 1, D = 8192 is 128 blocks, one wave.  A producer warp would
+//    cap a thread at 96 registers (17 or 18 warps an SM), which the
+//    recompute's states exceed, so its work is spread over the warps, each
+//    piece a group (8 steps) or more after the other warps made it possible.
+//  * A ring of 2 tiles in shared memory, brought in by the Tensor Memory
+//    Accelerator (TMA) as raw bits: dt, x, dy (32 steps x 64 channels), B and
+//    C (32 steps x st) and the tile's checkpoint (64 channels x st), through
+//    3-D tensor maps that give zeros past the end of S and D.  Each stage has
+//    a "loaded" and an "empty" mbarrier; warp 0 refills a stage a tile
+//    ahead, a group after every warp was done with it.  Each warp turns its
+//    pair's B and C into float32 once per tile, lane = step.
+//  * One exponential per state and step.  The recompute forms each decay
+//    once with scan_decay and steps the state with scan_step of
+//    ssm_scan.cuh (K9's step, so the states are K9's bit for bit), keeps the
+//    tile's 32 states before each step in registers (64 floats a thread) and
+//    the 32 decays in a slot buffer in shared memory ([step][warp][lane],
+//    8 bytes a thread and step, 128 KB at st = 16), which the reverse pass
+//    reads back.  dC needs no gradient, so the recompute forms it.
+//  * ddt and dx.  The reverse pass writes each thread's parts of a step
+//    (over its 2 states: the sum of gdec a + x g B, and of dt g B) into the
+//    slot its decay came from.  Once every warp has passed a group of 8 steps
+//    ("full" mbarriers), each warp sums its share of the group's (step, half)
+//    over the half's warps in warp order and stores ddt and dx; when every
+//    warp has ("freed" mbarriers), the next tile's recompute may write the
+//    group's slots.  It walks the slots in the opposite order, so that its
+//    first slots are the ones the reverse pass filled first.
+//  * dB and dC: per group of 8 steps a warp's 16 values (8 steps x 2 states)
+//    are summed across its 32 lanes by a butterfly reduce-scatter, into its
+//    half's tile of dB and dC; a tile later the warps add the two halves and
+//    write one partial per block: (B, D / 64, S, st) of each, half of what
+//    32-channel blocks would write.  A second kernel of this source sums the
+//    partials, and the B partials of dA (B, D, st), each in a fixed order.
+//    Nothing uses atomics, so two launches give the same bits.  (A
+//    thread-block cluster summing 32-channel blocks' tiles through
+//    distributed shared memory cost more, in its cluster-scope release and
+//    acquire per tile, than the partials it saved; PERF.md has the sweep.)
+//  * No barrier waits on the whole block after the start: each wait is for
+//    one group, one stage or one tile of dB and dC, a group or more after
+//    the other warps passed it.
+//  * The tail: S need not be a multiple of 32.  The TMA's zeros past the end
+//    give dt = 0 (a decay of 1 and an update of 0: the state carries over) and
+//    gradients of zero for dB, dC and dA; the stores stop at S and D.
+//    Channels past D read zeros and write nothing.  Offsets into the outputs
+//    are 64-bit.
 //
-// What bounds it (PERF.md has the measurements).  Bytes: dt, x, dy read and
-// ddt, dx written (20 bytes per (b, t, d) on the model path: dt float32, x and
-// dy bfloat16, the gradients float32), the checkpoints (1/32 of a state per
-// step), B and C, and the partials of dB and dC (written once, read once).
-// Operations: about 22 float32 operations per (b, t, d, s), the recompute
-// included, and two exponentials on the special-function units.
+// What bounds it, at (1, 4096, 8192, 16) with the train step's dtypes (dt
+// float32; x, dy, B, C, a bfloat16).  Bytes: dt, x, dy read and ddt, dx
+// written (16 bytes per (b, t, d)), the checkpoints (4 bytes per (b, d, s)
+// every 32 steps), B, C, dh_final and dA: 606 MB, 0.181 ms at 3.35 TB/s; the
+// partials of dB, dC and dA add 135.3 MB written and read.  The
+// exponentials: one per (b, t, d, s), 5.4e8, 0.128 ms on the
+// special-function units.  Neither binds: per state and step a thread issues
+// about 35 instructions (the step and its decay's store, the reverse pass's
+// seven products and sums, the parts' store, its share of the input loads
+// and of the reduce-scatter), and the shared-memory pipe carries the decay
+// written and read, the parts written and summed, the inputs read once per
+// pass by each of the st / 2 warps of a channel, and one shuffle per value
+// of the reduce-scatter.  PERF.md has the measurements: about 0.95 ms, of
+// which the shuffles take about a fifth.
 
 #include "ssm_scan.cuh"
+#include "tma.cuh"
 
 namespace {
 
 constexpr int kDyBf16 = 16;  // flags: dy is bfloat16
-constexpr int kDt = 32;      // channels per block
-constexpr int kSpt = 2;      // states per thread: a block is st / 2 warps
+constexpr int kCh = 32;      // channels per warp: lane = channel
+constexpr int kHalves = 2;   // warps per pair of states: a block is 64 channels
+constexpr int kBlockCh = kCh * kHalves;
+constexpr int kStates = 2;   // states per thread: a block is st / 2 * kHalves warps
+constexpr int kStages = 2;   // tiles in the ring
+constexpr int kGroup = 8;    // steps per group: one reduce-scatter, one hand-over of parts
+constexpr int kGroups = kSteps / kGroup;
+constexpr int kBarBytes = 128;  // the mbarriers, ahead of everything else
 
-// The loads below return raw bits and the conversion to float32 is separate:
-// a conversion next to its load (inside the dtype branch) would wait for the
-// load there, where the tile's prefetch must stay in flight.
+static_assert(kStates == 2 && kGroup * kStates == 16, "a pair of states a thread; 16 values a reduce-scatter");
+static_assert(2 * kStages + 2 * kGroups + 4 <= kBarBytes / 8, "barriers");
 
-// Elements i, i + 1 (i even): one 8-byte (float32) or 4-byte (bfloat16) load.
-__device__ __forceinline__ uint2 raw2(const void* p, int64_t i, bool bf16) {
-  uint2 r;
-  if (bf16) {
-    r.x = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(p) + i);
+// ---- elements in shared memory ----
+
+// Elements i, i + 1 (i even) of a row of float32 or bfloat16, as float32.
+template <bool kBf16>
+__device__ __forceinline__ float2 lds_pair(const unsigned char* base, int i) {
+  if constexpr (kBf16) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(base + 2 * i);
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
   } else {
-    r = *reinterpret_cast<const uint2*>(static_cast<const float*>(p) + i);
+    return *reinterpret_cast<const float2*>(base + 4 * i);
   }
-  return r;
 }
-
-__device__ __forceinline__ float2 cvt2(uint2 r, bool bf16) {
-  return bf16 ? make_float2(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u))
-              : make_float2(__uint_as_float(r.x), __uint_as_float(r.y));
-}
-
-// Elements i .. i + 3 (i a multiple of 4): one 16-byte or 8-byte load.
-__device__ __forceinline__ uint4 raw4(const void* p, int64_t i, bool bf16) {
-  uint4 r;
-  if (bf16) {
-    const uint2 w = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
-    r.x = w.x, r.y = w.y;
-  } else {
-    r = *reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
-  }
-  return r;
-}
-
-__device__ __forceinline__ float4 cvt4(uint4 r, bool bf16) {
-  return bf16 ? make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                            __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u))
-              : make_float4(__uint_as_float(r.x), __uint_as_float(r.y), __uint_as_float(r.z),
-                            __uint_as_float(r.w));
-}
-
-template <int ST>
-struct alignas(16) BwdShared {
-  float4 in[kSteps][kDt];               // (dt, x, dy, 0) per step and channel
-  float4 bc[kSteps][ST / kSpt];         // (B, B, C, C) of each warp's 2 states per step
-  float2 part[kSteps][ST / kSpt][kDt];  // per thread and step: (sum_j gdec_j a_j, sum_j g_j B_j)
-  float dbc[2][kSteps][ST];             // dB, dC of the block's 32 channels per step and state
-};
 
 // Stage H of a butterfly reduce-scatter of 16 values across a warp: lanes
 // that differ in bit 2H exchange half of their values and each keeps the sum
@@ -140,207 +143,305 @@ __device__ __forceinline__ float reduce_scatter16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
-template <int ST>
-__global__ void __launch_bounds__(kDt * ST / kSpt)
-    ssm_scan_bwd_kernel(const void* __restrict__ dt, const void* __restrict__ x,
-                        const void* __restrict__ bm, const void* __restrict__ cm,
-                        const void* __restrict__ a, const float* __restrict__ hstart,
-                        const void* __restrict__ dy, const float* __restrict__ dh_final,
-                        float* __restrict__ ddt, float* __restrict__ dxo, float* __restrict__ part_b,
-                        float* __restrict__ part_c, float* __restrict__ part_a, int64_t seq,
-                        int d_model, int n_dtiles, int flags) {
-  constexpr int kTpd = ST / kSpt;                          // threads per channel: one per warp
-  constexpr int kThreads = kDt * kTpd;                     // threads per block
-  constexpr int kRowLoads = kSteps * kDt / 4 / kThreads;  // 4-channel groups of dt, x, dy per thread per tile
-  constexpr int kStLoads = kSteps * ST / 2 / kThreads;     // state pairs of B and C per thread per tile
-  static_assert(kRowLoads * kThreads * 4 == kSteps * kDt && kStLoads * kThreads * 2 == kSteps * ST, "tile split");
-  static_assert(kDt == 32 && kSpt == 2 && kSteps % 4 == 0, "lane = channel; one float4 of B and C; groups of 4 steps");
+// ---- the kernel ----
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdShared<ST>& sm = *reinterpret_cast<BwdShared<ST>*>(smem_raw);
+// Shared memory of one block (every offset a multiple of 128 bytes): the
+// mbarriers, the ring's stages, the slots of decays and parts, two tiles of
+// dB and dC per half (tile i's are summed while tile i + 1 runs), and each
+// warp's B and C of the running tile as float32.
+template <int ST, bool kDtB, bool kXB, bool kDyB, bool kBcB>
+struct Layout {
+  static constexpr int kPairs = ST / kStates;
+  static constexpr int kWarps = kPairs * kHalves;
+  static constexpr int kDtBytes = kSteps * kBlockCh * (kDtB ? 2 : 4);
+  static constexpr int kXBytes = kSteps * kBlockCh * (kXB ? 2 : 4);
+  static constexpr int kDyBytes = kSteps * kBlockCh * (kDyB ? 2 : 4);
+  static constexpr int kBcBytes = kSteps * ST * (kBcB ? 2 : 4);
+  // one stage: every byte comes by TMA
+  static constexpr int kDt = 0;
+  static constexpr int kX = kDt + kDtBytes;
+  static constexpr int kDy = kX + kXBytes;
+  static constexpr int kB = kDy + kDyBytes;
+  static constexpr int kC = kB + kBcBytes;
+  static constexpr int kCk = kC + kBcBytes;  // the checkpoint: [kBlockCh][ST] float32
+  static constexpr int kStage = kCk + kBlockCh * ST * 4;
+  // the whole block
+  static constexpr int kSlots = kBarBytes + kStages * kStage;      // [kSteps][kWarps][kCh] float2
+  static constexpr int kDbc = kSlots + kSteps * kWarps * kCh * 8;  // [2][kHalves][dB, dC][kSteps][ST] float32
+  static constexpr int kBcw = kDbc + 2 * kHalves * 2 * kSteps * ST * 4;  // [kWarps][kSteps] float4
+  static constexpr int kBytes = kBcw + kWarps * kSteps * 16;
+  static_assert(kBcBytes % 128 == 0 && kDtBytes % 128 == 0, "tile alignment");
+  static_assert(kBytes <= 232448, "a block's shared memory on Hopper");
+};
 
-  const bool dt_bf16 = flags & kDtBf16, x_bf16 = flags & kXBf16, bc_bf16 = flags & kBcBf16;
-  const bool a_bf16 = flags & kABf16, dy_bf16 = flags & kDyBf16;
-  const int tid = threadIdx.x;
-  const int64_t b = blockIdx.x / n_dtiles;
-  const int dtile = blockIdx.x - static_cast<int>(b) * n_dtiles;
-  const int d0 = dtile * kDt;
-  const int dl = tid % kDt;  // this thread's channel in the block (its lane)
-  const int q = tid / kDt;   // and its pair of states (its warp)
-  const int d = d0 + dl;
-  const bool live = d < d_model;
-  const int64_t n_tiles = (seq + kSteps - 1) / kSteps;  // = checkpoints per row
+// One step's inputs for one channel and a pair of states.
+struct Step {
+  float dt, x, dy;
+  float4 bc;  // B and C of the pair
+  float2 dec;
+};
 
-  float av[kSpt], a2[kSpt], g[kSpt], da[kSpt];
+// Step t of the tile in stage `st`: dt, x, dy of this thread's channel (its
+// column `col` of the tile), B (and in the reverse pass C and the decays) of
+// its pair of states.
+template <int ST, bool kDtB, bool kXB, bool kDyB, bool kBcB, bool kRev>
+__device__ __forceinline__ Step load_step(const unsigned char* st, int t, int col, const float4* bcw,
+                                          const float2* slot) {
+  using L = Layout<ST, kDtB, kXB, kDyB, kBcB>;
+  Step v;
+  v.dt = lds_f32<kDtB>(st + L::kDt, t * kBlockCh + col);
+  v.x = lds_f32<kXB>(st + L::kX, t * kBlockCh + col);
+  v.dy = lds_f32<kDyB>(st + L::kDy, t * kBlockCh + col);
+  if constexpr (kRev) {
+    v.bc = bcw[t];
+    v.dec = *slot;
+  } else {
+    const float2 b = *reinterpret_cast<const float2*>(bcw + t);
+    v.bc.x = b.x, v.bc.y = b.y;
+  }
+  return v;
+}
+
+template <int ST, bool kDtB, bool kXB, bool kDyB, bool kBcB>
+__global__ void __launch_bounds__(32 * ST, 16 / ST)
+    ssm_scan_bwd_kernel(const __grid_constant__ CUtensorMap tm_dt, const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_h,
+                        const void* __restrict__ a, const float* __restrict__ dh_final, float* __restrict__ ddt,
+                        float* __restrict__ dxo, float* __restrict__ part_b, float* __restrict__ part_c,
+                        float* __restrict__ part_a, int seq, int d_model, int n_dtiles, int flags) {
+  using L = Layout<ST, kDtB, kXB, kDyB, kBcB>;
+  constexpr int kPairs = L::kPairs, kWarps = L::kWarps;
+  constexpr int kSlotStride = kWarps * kCh;    // float2 per step in the slots
+  constexpr int kShare = kGroup * kHalves / kWarps;  // (step, half) of a group whose parts one warp sums
+  constexpr int kTile = 2 * kSteps * ST;       // dB and dC of one tile, one half
+  constexpr int kPer = kTile / (32 * kWarps);  // values of them a lane sums over the halves
+  static_assert(kWarps == ST && kShare * kWarps == kGroup * kHalves && kPer * 32 * kWarps == kTile,
+                "thread map");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = loaded + kStages;
+  uint64_t* full = empty + kStages;
+  uint64_t* freed = full + kGroups;
+  uint64_t* tfull = freed + kGroups;
+  uint64_t* tfree = tfull + 2;
+  unsigned char* ring = smem + kBarBytes;
+  float2* slots = reinterpret_cast<float2*>(smem + L::kSlots);
+  float* dbc = reinterpret_cast<float*>(smem + L::kDbc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = warp % kPairs, hf = warp / kPairs;  // this warp's pair of states and half of the channels
+  const int b = blockIdx.x / n_dtiles;
+  const int dtile = blockIdx.x - b * n_dtiles;
+  const int d0 = dtile * kBlockCh, col = hf * kCh + lane, d = d0 + col;
+  const int n_tiles = (seq - 1) / kSteps + 1;
+  float4* const bcw = reinterpret_cast<float4*>(smem + L::kBcw) + warp * kSteps;  // this warp's
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&loaded[s], 1);      // warp 0's arrive.expect_tx, then the copies' bytes
+      mbar_init(&empty[s], kWarps);  // one lane of each warp
+    }
+    for (int r = 0; r < kGroups; ++r) {
+      mbar_init(&full[r], kWarps);   // each warp has written the group's parts
+      mbar_init(&freed[r], kWarps);  // each warp has summed its share of them
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&tfull[k], kWarps);  // each warp has its dB and dC of a tile written
+      mbar_init(&tfree[k], kWarps);  // each warp has summed its share of them
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier: the mbarriers exist
+
+  // Iteration i runs tile n_tiles - 1 - i, in stage i % kStages; its decays
+  // and parts of step t live in slot t (i even) or 31 - t (i odd).
+  auto issue = [&](int i) {  // lane 0 of warp 0
+    const int s = i % kStages, c = n_tiles - 1 - i;
+    unsigned char* st = ring + s * L::kStage;
+    mbar_arrive_expect_tx(&loaded[s], L::kStage);
+    tma_load(st + L::kDt, &tm_dt, d0, c * kSteps, b, &loaded[s]);
+    tma_load(st + L::kX, &tm_x, d0, c * kSteps, b, &loaded[s]);
+    tma_load(st + L::kDy, &tm_dy, d0, c * kSteps, b, &loaded[s]);
+    tma_load(st + L::kB, &tm_b, 0, c * kSteps, b, &loaded[s]);
+    tma_load(st + L::kC, &tm_c, 0, c * kSteps, b, &loaded[s]);
+    tma_load(st + L::kCk, &tm_h, 0, d0, b * n_tiles + c, &loaded[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages && i < n_tiles; ++i) issue(i);
+  }
+
+  // This warp's share of group r of iteration i: the parts of kShare (step,
+  // half) of the group summed over the half's warps in warp order, into ddt
+  // and dx.
+  auto share = [&](int i, int r) {
+    mbar_wait(&full[r], i & 1);  // every warp has written the group's parts
+    const int64_t t0 = static_cast<int64_t>(n_tiles - 1 - i) * kSteps;
 #pragma unroll
-  for (int j = 0; j < kSpt; ++j) {
-    av[j] = live ? load_f32(a, static_cast<int64_t>(d) * ST + q * kSpt + j, a_bf16) : 0.f;
-    a2[j] = av[j] * kLog2e;  // as K9 forms it
-    g[j] = live ? dh_final[(b * d_model + d) * ST + q * kSpt + j] : 0.f;
+    for (int m = 0; m < kShare; ++m) {
+      const int c = warp * kShare + m, h = c / kGroup;
+      const int t = kSteps - (r + 1) * kGroup + c % kGroup;
+      const float2* p = slots + ((i & 1) ? kSteps - 1 - t : t) * kSlotStride + h * kPairs * kCh + lane;
+      float2 v[kPairs];
+#pragma unroll
+      for (int w = 0; w < kPairs; ++w) v[w] = p[w * kCh];
+      float2 acc = v[0];
+#pragma unroll
+      for (int w = 1; w < kPairs; ++w) acc.x += v[w].x, acc.y += v[w].y;
+      const int dd = d0 + h * kCh + lane;
+      if (dd < d_model && t0 + t < seq) {
+        const int64_t o = (b * static_cast<int64_t>(seq) + t0 + t) * d_model + dd;
+        ddt[o] = acc.x;
+        dxo[o] = acc.y;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[r]);
+  };
+
+  // This warp's share of iteration i's dB and dC: kPer values, each the sum
+  // of the two halves' tiles, into the block's partials.
+  auto reduce = [&](int i) {
+    const float* tile = dbc + (i & 1) * kHalves * kTile;
+    const int64_t t0 = static_cast<int64_t>(n_tiles - 1 - i) * kSteps;
+    mbar_wait(&tfull[i & 1], (i >> 1) & 1);
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int e = (m * kWarps + warp) * 32 + lane;
+      const float acc = tile[e] + tile[kTile + e];
+      const int kind = e / (kSteps * ST), t = (e / ST) % kSteps, s = e % ST;
+      if (t0 + t < seq) (kind ? part_c : part_b)[((static_cast<int64_t>(b) * n_dtiles + dtile) * seq + t0 + t) * ST + s] = acc;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&tfree[i & 1]);
+  };
+
+  // ---- a thread: states s0, s0 + 1 (its warp's pair) of channel d ----
+  const int s0 = q * kStates;
+  const bool live = d < d_model;
+  const bool a_bf16 = flags & kABf16;
+  float av[kStates], g[kStates], da[kStates];
+#pragma unroll
+  for (int j = 0; j < kStates; ++j) {
+    av[j] = live ? load_f32(a, static_cast<int64_t>(d) * ST + s0 + j, a_bf16) : 0.f;
+    g[j] = live ? dh_final[(static_cast<int64_t>(b) * d_model + d) * ST + s0 + j] : 0.f;
     da[j] = 0.f;
   }
-
-  uint4 p_dt[kRowLoads], p_x[kRowLoads], p_dy[kRowLoads];
-  uint2 p_b[kStLoads], p_c[kStLoads];
-  float2 p_h;
-  auto prefetch = [&](int64_t c) {  // tile c into registers, as raw bits
-    const int64_t t0 = c * kSteps;
-#pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int64_t t = t0 + e / (kDt / 4);
-      const int dd = d0 + 4 * (e % (kDt / 4));
-      const bool ok = t < seq && dd < d_model;  // d_model is a multiple of 4
-      const int64_t i = (b * seq + t) * d_model + dd;
-      p_dt[j] = ok ? raw4(dt, i, dt_bf16) : make_uint4(0u, 0u, 0u, 0u);
-      p_x[j] = ok ? raw4(x, i, x_bf16) : make_uint4(0u, 0u, 0u, 0u);
-      p_dy[j] = ok ? raw4(dy, i, dy_bf16) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < kStLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int64_t t = t0 + e / (ST / 2);
-      const int64_t i = (b * seq + t) * ST + 2 * (e % (ST / 2));
-      p_b[j] = t < seq ? raw2(bm, i, bc_bf16) : make_uint2(0u, 0u);
-      p_c[j] = t < seq ? raw2(cm, i, bc_bf16) : make_uint2(0u, 0u);
-    }
-    p_h = live ? *reinterpret_cast<const float2*>(hstart + ((b * n_tiles + c) * d_model + d) * ST + q * kSpt)
-               : make_float2(0.f, 0.f);
-  };
-  auto stage = [&]() {  // the prefetched tile into shared memory, as float32
-#pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int r = e / (kDt / 4), c = 4 * (e % (kDt / 4));
-      const float4 vd = cvt4(p_dt[j], dt_bf16), vx = cvt4(p_x[j], x_bf16), vy = cvt4(p_dy[j], dy_bf16);
-      sm.in[r][c + 0] = make_float4(vd.x, vx.x, vy.x, 0.f);
-      sm.in[r][c + 1] = make_float4(vd.y, vx.y, vy.y, 0.f);
-      sm.in[r][c + 2] = make_float4(vd.z, vx.z, vy.z, 0.f);
-      sm.in[r][c + 3] = make_float4(vd.w, vx.w, vy.w, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < kStLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int r = e / (ST / 2), s = 2 * (e % (ST / 2));
-      const float2 vb = cvt2(p_b[j], bc_bf16), vc = cvt2(p_c[j], bc_bf16);
-      sm.bc[r][s / kSpt] = make_float4(vb.x, vb.y, vc.x, vc.y);
-    }
-  };
-
-  prefetch(n_tiles - 1);
-  stage();
-  float h0[kSpt] = {p_h.x, p_h.y};  // the checkpoint of the staged tile
-  __syncthreads();
-  for (int64_t c = n_tiles - 1; c >= 0; --c) {
-    const int64_t t0 = c * kSteps;
-    if (c > 0) prefetch(c - 1);  // in flight while this tile runs
-
-    // 1) the tile's states from its checkpoint: h[i] is the state before step i
-    float h[kSteps + 1][kSpt];
-#pragma unroll
-    for (int j = 0; j < kSpt; ++j) h[0][j] = h0[j];
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      const float4 v = sm.in[i][dl];
-      const float4 w = sm.bc[i][q];
-      const float dtx = v.x * v.y;
-      const float bj[kSpt] = {w.x, w.y};
-#pragma unroll
-      for (int j = 0; j < kSpt; ++j) h[i + 1][j] = scan_step(h[i][j], v.x, a2[j], dtx, bj[j]);
+  float2* const mine = slots + warp * kCh + lane;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const unsigned char* st = ring + s * L::kStage;
+    float2* const slot0 = (i & 1) ? mine + (kSteps - 1) * kSlotStride : mine;  // this thread's slot of step 0
+    const int dir = (i & 1) ? -kSlotStride : kSlotStride;
+    float* tile = dbc + ((i & 1) * kHalves + hf) * kTile;
+    const float a2[kStates] = {av[0] * kLog2e, av[1] * kLog2e};  // as K9 forms it
+    mbar_wait(&loaded[s], (i / kStages) & 1);
+    {  // this warp's B and C of the tile as float32, once: lane = step
+      const float2 bb = lds_pair<kBcB>(st + L::kB, lane * ST + s0), cc = lds_pair<kBcB>(st + L::kC, lane * ST + s0);
+      bcw[lane] = make_float4(bb.x, bb.y, cc.x, cc.y);
+      __syncwarp();
     }
 
-    // 2) the reverse recurrence, 4 steps at a time; g enters as dL/dh after the tile
-#pragma unroll
-    for (int grp = kSteps / 4 - 1; grp >= 0; --grp) {
-      float vals[16];  // per step k of the group: dB of the 2 states, then dC of the 2 states
-#pragma unroll
-      for (int k = 3; k >= 0; --k) {
-        const int i = grp * 4 + k;
-        const float4 v = sm.in[i][dl];
-        const float4 w = sm.bc[i][q];
-        const float dtx = v.x * v.y;
-        const float bj[kSpt] = {w.x, w.y}, cj[kSpt] = {w.z, w.w};
-        float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < kSpt; ++j) {
-          vals[4 * k + 2 + j] = h[i + 1][j] * v.z;
-          g[j] = fmaf(v.z, cj[j], g[j]);
-          const float dec = scan_decay(v.x, a2[j]);
-          const float gdec = g[j] * h[i][j] * dec;
-          p1 = fmaf(gdec, av[j], p1);
-          p2 = fmaf(g[j], bj[j], p2);
-          vals[4 * k + j] = g[j] * dtx;
-          da[j] = fmaf(v.x, gdec, da[j]);
-          g[j] *= dec;
-        }
-        sm.part[i][q][dl] = make_float2(p1, p2);
-      }
-      const float sum = reduce_scatter16(vals, dl);
-      if ((dl & 1) == 0) {
-        const int idx = dl >> 1, k = idx >> 2, m = idx & 3;
-        sm.dbc[m >> 1][grp * 4 + k][q * kSpt + (m & 1)] = sum;
-      }
-    }
-    __syncthreads();  // the parts and dB/dC of the tile are whole
-
-    // 3) ddt and dx of 4 channels of one step: the parts summed in warp order
-#pragma unroll
-    for (int j = 0; j < kRowLoads; ++j) {
-      const int e = tid + j * kThreads;
-      const int r = e / (kDt / 4), c4 = 4 * (e % (kDt / 4));
-      const int64_t t = t0 + r;
-      if (t < seq && d0 + c4 < d_model) {
-        float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int m = 0; m < kTpd; ++m) {
-          const float4 u0 = *reinterpret_cast<const float4*>(&sm.part[r][m][c4]);
-          const float4 u1 = *reinterpret_cast<const float4*>(&sm.part[r][m][c4 + 2]);
-          s1[0] += u0.x, s2[0] += u0.y, s1[1] += u0.z, s2[1] += u0.w;
-          s1[2] += u1.x, s2[2] += u1.y, s1[3] += u1.z, s2[3] += u1.w;
-        }
-        float o1[4], o2[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float4 v = sm.in[r][c4 + k];
-          o1[k] = s1[k] + v.y * s2[k];
-          o2[k] = v.x * s2[k];
-        }
-        const int64_t o = (b * seq + t) * d_model + d0 + c4;
-        *reinterpret_cast<float4*>(ddt + o) = make_float4(o1[0], o1[1], o1[2], o1[3]);
-        *reinterpret_cast<float4*>(dxo + o) = make_float4(o2[0], o2[1], o2[2], o2[3]);
-      }
-    }
-    // 4) this block's partial dB and dC of the tile: (steps, st) rows, contiguous
+    // 1) the recompute: h[t] is the state before step t; each decay formed once
+    float h[kSteps][kStates];
     {
-      const int n_valid = static_cast<int>(seq - t0 < kSteps ? seq - t0 : kSteps);
-      const int64_t base = ((b * n_dtiles + dtile) * seq + t0) * ST;
-      const float* sb = &sm.dbc[0][0][0];
-      const float* sc = &sm.dbc[1][0][0];
-      for (int e = tid; e < n_valid * ST; e += kThreads) {
-        part_b[base + e] = sb[e];
-        part_c[base + e] = sc[e];
+      const float2 ck = *reinterpret_cast<const float2*>(st + L::kCk + (col * ST + s0) * 4);
+      h[0][0] = ck.x, h[0][1] = ck.y;
+    }
+    float vals[16];
+    Step nx = load_step<ST, kDtB, kXB, kDyB, kBcB, false>(st, 0, col, bcw, nullptr);
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      const int f = t / kGroup, k = t % kGroup;
+      if (k == 0 && i >= 1) mbar_wait(&freed[f], (i - 1) & 1);  // iteration i - 1's parts here are summed
+      if (t == 0 && i >= 2) mbar_wait(&tfree[i & 1], ((i - 2) >> 1) & 1);  // and its dB, dC tile two back
+      const Step v = nx;
+      if (t + 1 < kSteps) nx = load_step<ST, kDtB, kXB, kDyB, kBcB, false>(st, t + 1, col, bcw, nullptr);
+      const float dtx = v.dt * v.x;
+      const float bj[kStates] = {v.bc.x, v.bc.y};
+      float dec[kStates];
+#pragma unroll
+      for (int j = 0; j < kStates; ++j) {
+        dec[j] = scan_decay(v.dt, a2[j]);
+        const float hn = scan_step(h[t][j], dec[j], dtx, bj[j]);
+        if (t + 1 < kSteps) h[t + 1][j] = hn;
+        vals[k * kStates + j] = hn * v.dy;  // dC
+      }
+      slot0[t * dir] = make_float2(dec[0], dec[1]);
+      if (k == kGroup - 1) {
+        const float sum = reduce_scatter16(vals, lane);
+        if ((lane & 1) == 0) {
+          const int m = lane >> 1;
+          tile[(kSteps + t - k + (m >> 1)) * ST + s0 + (m & 1)] = sum;
+        }
+        // Work for iteration i - 1 that waits on the other warps, a group
+        // or more after they did their part: the last group's parts, the
+        // ring's refill, and the dB and dC tile.
+        if (f == 0 && i >= 1) share(i - 1, kGroups - 1);
+        if (f == 1 && i >= 1 && warp == 0 && i - 1 + kStages < n_tiles) {
+          mbar_wait(&empty[(i - 1) % kStages], ((i - 1) / kStages) & 1);
+          if (lane == 0) issue(i - 1 + kStages);
+          __syncwarp();
+        }
+        if (f == kGroups - 1 && i >= 1) reduce(i - 1);
       }
     }
+
+    // 2) the reverse pass, g entering as dL/dh after the tile
+    Step nr = load_step<ST, kDtB, kXB, kDyB, kBcB, true>(st, kSteps - 1, col, bcw, slot0 + (kSteps - 1) * dir);
 #pragma unroll
-    for (int j = 0; j < kSpt; ++j) h0[j] = j == 0 ? p_h.x : p_h.y;  // the checkpoint of tile c - 1
-    __syncthreads();  // nobody reads this tile's shared memory any more
-    stage();          // tile c - 1 (unused after the first tile)
-    __syncthreads();
+    for (int u = 0; u < kSteps; ++u) {
+      const int t = kSteps - 1 - u, k = t % kGroup, r = u / kGroup;
+      const Step v = nr;
+      if (t > 0) nr = load_step<ST, kDtB, kXB, kDyB, kBcB, true>(st, t - 1, col, bcw, slot0 + (t - 1) * dir);
+      const float dtx = v.dt * v.x;
+      const float bj[kStates] = {v.bc.x, v.bc.y}, cj[kStates] = {v.bc.z, v.bc.w}, dj[kStates] = {v.dec.x, v.dec.y};
+      float p1 = 0.f, p2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kStates; ++j) {
+        g[j] = fmaf(v.dy, cj[j], g[j]);
+        vals[k * kStates + j] = g[j] * dtx;  // dB
+        p2 = fmaf(g[j], bj[j], p2);
+        const float gd = g[j] * dj[j];
+        const float gdec = gd * h[t][j];
+        p1 = fmaf(gdec, av[j], p1);
+        da[j] = fmaf(v.dt, gdec, da[j]);
+        g[j] = gd;
+      }
+      slot0[t * dir] = make_float2(fmaf(v.x, p2, p1), v.dt * p2);  // this thread's parts of ddt and dx
+      if (k == 0) {
+        const float sum = reduce_scatter16(vals, lane);
+        if ((lane & 1) == 0) {
+          const int m = lane >> 1;
+          tile[(t + (m >> 1)) * ST + s0 + (m & 1)] = sum;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[r]);  // the group's parts are written
+        if (r >= 1) share(i, r - 1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&empty[s]);       // done with the stage
+      mbar_arrive(&tfull[i & 1]);   // and with the tile of dB and dC
+    }
   }
+  share(n_tiles - 1, kGroups - 1);
+  reduce(n_tiles - 1);
   if (live) {
 #pragma unroll
-    for (int j = 0; j < kSpt; ++j) part_a[(b * d_model + d) * ST + q * kSpt + j] = da[j];
+    for (int j = 0; j < kStates; ++j) part_a[(static_cast<int64_t>(b) * d_model + d) * ST + s0 + j] = da[j];
   }
 }
 
-// The second pass: dB and dC (B, S, st) as the sums of the n_dtiles partials
-// of each (b, t, s), and dA (D, st) as the sum of the B partials of each
-// (d, s), each in index order.
+// The second pass: dB and dC (B, S, st) as the sums of the n_dtiles partials of
+// each (b, t, s), and dA (D, st) as the sum of the B partials of each (d, s),
+// each in index order.
 __global__ void __launch_bounds__(256)
     ssm_scan_bwd_reduce(const float* __restrict__ part_b, const float* __restrict__ part_c,
-                        const float* __restrict__ part_a, float* __restrict__ db,
-                        float* __restrict__ dc, float* __restrict__ da, int64_t batch,
-                        int64_t seq_st, int64_t n_dtiles, int64_t d_st) {
+                        const float* __restrict__ part_a, float* __restrict__ db, float* __restrict__ dc,
+                        float* __restrict__ da, int64_t batch, int64_t seq_st, int64_t n_dtiles, int64_t d_st) {
   const int64_t n_bc = batch * seq_st, n = n_bc + d_st;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
@@ -365,58 +466,128 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int ST>
-int launch(const void* dt, const void* x, const void* bm, const void* cm, const void* a,
-           const void* hstart, const void* dy, const void* dh_final, void* ddt, void* dx, void* db,
-           void* dc, void* da, void* part_b, void* part_c, void* part_a, int64_t batch, int64_t seq,
-           int d_model, int flags, void* stream) {
-  const int64_t n_dtiles = (d_model + kDt - 1) / kDt;
-  if (batch * n_dtiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto kernel = ssm_scan_bwd_kernel<ST>;
-  const int smem = static_cast<int>(sizeof(BwdShared<ST>));
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---- the host side ----
+
+struct BwdArgs {
+  const void *dt, *x, *bm, *cm, *a, *hstart, *dy, *dh_final;
+  float *ddt, *dx, *db, *dc, *da, *work;
+  int batch, seq, d_model, st, flags;
+  cudaStream_t stream;
+};
+
+struct BwdMaps {
+  CUtensorMap dt, x, dy, b, c, h;
+};
+
+int64_t n_tiles_of(int64_t seq) { return (seq + kSteps - 1) / kSteps; }
+int64_t n_dtiles_of(int64_t d_model) { return (d_model + kBlockCh - 1) / kBlockCh; }
+
+// Float32 of the workspace: the partials of dB and of dC (B, ceil(D / 64),
+// S, st) each, then those of dA (B, D, st).
+int64_t work_floats(int64_t batch, int64_t seq, int64_t d_model, int64_t st) {
+  return 2 * batch * n_dtiles_of(d_model) * seq * st + batch * d_model * st;
+}
+
+bool encode_all(BwdMaps& m, const BwdArgs& s) {
+  const bool dt16 = s.flags & kDtBf16, x16 = s.flags & kXBf16, dy16 = s.flags & kDyBf16, bc16 = s.flags & kBcBf16;
+  const int64_t d = s.d_model, seq = s.seq, bsz = s.batch;
+  return encode3d(&m.dt, s.dt, dt16, d, seq, bsz, kBlockCh, kSteps) &&
+         encode3d(&m.x, s.x, x16, d, seq, bsz, kBlockCh, kSteps) &&
+         encode3d(&m.dy, s.dy, dy16, d, seq, bsz, kBlockCh, kSteps) &&
+         encode3d(&m.b, s.bm, bc16, s.st, seq, bsz, s.st, kSteps) &&
+         encode3d(&m.c, s.cm, bc16, s.st, seq, bsz, s.st, kSteps) &&
+         encode3d(&m.h, s.hstart, false, s.st, d, bsz * n_tiles_of(seq), s.st, kBlockCh);
+}
+
+template <int ST, bool kDtB, bool kXB, bool kDyB, bool kBcB>
+int launch_kernel(const BwdMaps& m, const BwdArgs& s) {
+  using L = Layout<ST, kDtB, kXB, kDyB, kBcB>;
+  const auto kernel = ssm_scan_bwd_kernel<ST, kDtB, kXB, kDyB, kBcB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  kernel<<<static_cast<unsigned>(batch * n_dtiles), kDt * ST / kSpt, smem, s>>>(
-      dt, x, bm, cm, a, static_cast<const float*>(hstart), dy, static_cast<const float*>(dh_final),
-      static_cast<float*>(ddt), static_cast<float*>(dx), static_cast<float*>(part_b),
-      static_cast<float*>(part_c), static_cast<float*>(part_a), seq, d_model,
-      static_cast<int>(n_dtiles), flags);
+  const int64_t n_dtiles = n_dtiles_of(s.d_model);
+  const int64_t n_part = static_cast<int64_t>(s.batch) * n_dtiles * s.seq * ST;
+  float *part_b = s.work, *part_c = s.work + n_part, *part_a = s.work + 2 * n_part;
+  kernel<<<static_cast<unsigned>(s.batch * n_dtiles), 32 * L::kWarps, L::kBytes, s.stream>>>(
+      m.dt, m.x, m.dy, m.b, m.c, m.h, s.a, static_cast<const float*>(s.dh_final), s.ddt, s.dx, part_b, part_c,
+      part_a, s.seq, s.d_model, static_cast<int>(n_dtiles), s.flags);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n = batch * seq * ST + static_cast<int64_t>(d_model) * ST;
+  const int64_t n = static_cast<int64_t>(s.batch) * s.seq * ST + static_cast<int64_t>(s.d_model) * ST;
   const int64_t blocks = (n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16;
-  ssm_scan_bwd_reduce<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
-      static_cast<const float*>(part_b), static_cast<const float*>(part_c),
-      static_cast<const float*>(part_a), static_cast<float*>(db), static_cast<float*>(dc),
-      static_cast<float*>(da), batch, seq * ST, n_dtiles, static_cast<int64_t>(d_model) * ST);
+  ssm_scan_bwd_reduce<<<static_cast<unsigned>(blocks), 256, 0, s.stream>>>(
+      part_b, part_c, part_a, s.db, s.dc, s.da, s.batch, static_cast<int64_t>(s.seq) * ST, n_dtiles,
+      static_cast<int64_t>(s.d_model) * ST);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int ST, bool kDtB, bool kXB, bool kDyB>
+int launch_bc(const BwdMaps& m, const BwdArgs& s) {
+  return s.flags & kBcBf16 ? launch_kernel<ST, kDtB, kXB, kDyB, true>(m, s)
+                           : launch_kernel<ST, kDtB, kXB, kDyB, false>(m, s);
+}
+
+template <int ST, bool kDtB, bool kXB>
+int launch_dy(const BwdMaps& m, const BwdArgs& s) {
+  return s.flags & kDyBf16 ? launch_bc<ST, kDtB, kXB, true>(m, s) : launch_bc<ST, kDtB, kXB, false>(m, s);
+}
+
+template <int ST, bool kDtB>
+int launch_x(const BwdMaps& m, const BwdArgs& s) {
+  return s.flags & kXBf16 ? launch_dy<ST, kDtB, true>(m, s) : launch_dy<ST, kDtB, false>(m, s);
+}
+
+template <int ST>
+int launch_dt(const BwdMaps& m, const BwdArgs& s) {
+  return s.flags & kDtBf16 ? launch_x<ST, true>(m, s) : launch_x<ST, false>(m, s);
+}
+
+// What a launch must satisfy: shapes at least 1, st 8 or 16, the rows of dt,
+// x and dy and every operand 16-byte aligned (the TMA's rule for its maps),
+// and the workspace's size.
+bool valid(const BwdArgs& s, int64_t batch, int64_t seq, int64_t work) {
+  const void* ptrs[14] = {s.dt, s.x, s.bm, s.cm, s.a, s.hstart, s.dy, s.dh_final,
+                          s.ddt, s.dx, s.db, s.dc, s.da, s.work};
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  }
+  const int64_t d = s.d_model;
+  const bool rows = d * (s.flags & kDtBf16 ? 2 : 4) % 16 == 0 && d * (s.flags & kXBf16 ? 2 : 4) % 16 == 0 &&
+                    d * (s.flags & kDyBf16 ? 2 : 4) % 16 == 0;
+  return batch >= 1 && seq >= 1 && seq <= INT32_MAX - kSteps && d >= 1 && (s.st == 8 || s.st == 16) && rows &&
+         batch * n_tiles_of(seq) <= INT32_MAX && batch * n_dtiles_of(d) <= INT32_MAX &&
+         work == work_floats(batch, seq, d, s.st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Float32 of the workspace one K10 call on these shapes takes.
+int64_t ssm_scan_bwd_work_floats(int64_t batch, int64_t seq, int d_model, int st) {
+  return work_floats(batch, seq, d_model, st);
+}
+
 // One K10 call on `stream`: the block kernel, then the reduction of its
-// partials.  st must be 8 or 16; batch, seq and d_model at least 1, d_model a
-// multiple of 4; hstart (B, ceil(seq / 32), D, st) float32 holds K9's states
-// at every 32-step tile start; dh_final (B, D, st) float32.  The outputs ddt,
-// dx (B, S, D), db, dc (B, S, st), da (D, st) and the workspaces part_b,
-// part_c (B, ceil(D / 32), S, st) and part_a (B, D, st) are float32 and
-// preallocated.  Returns a cudaError_t code, 0 when both launches were
-// accepted.
-int ssm_scan_bwd(const void* dt, const void* x, const void* bm, const void* cm, const void* a,
-                 const void* hstart, const void* dy, const void* dh_final, void* ddt, void* dx,
-                 void* db, void* dc, void* da, void* part_b, void* part_c, void* part_a,
-                 int64_t batch, int64_t seq, int d_model, int st, int flags, void* stream) {
-  if (batch < 1 || seq < 1 || d_model < 1 || d_model % 4) return static_cast<int>(cudaErrorInvalidValue);
-  switch (st) {
-    case 8: return launch<8>(dt, x, bm, cm, a, hstart, dy, dh_final, ddt, dx, db, dc, da, part_b, part_c,
-                             part_a, batch, seq, d_model, flags, stream);
-    case 16: return launch<16>(dt, x, bm, cm, a, hstart, dy, dh_final, ddt, dx, db, dc, da, part_b, part_c,
-                               part_a, batch, seq, d_model, flags, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// partials.  st must be 8 or 16; batch, seq and d_model at least 1, d_model
+// times the element size of dt, of x and of dy a multiple of 16 bytes, every
+// pointer 16-byte aligned; hstart (B, ceil(seq / 32), D, st) float32 holds
+// K9's states at every 32-step tile start; dh_final (B, D, st) float32.  The
+// outputs ddt, dx (B, S, D), db, dc (B, S, st), da (D, st) and the workspace
+// of `work_size` float32 (ssm_scan_bwd_work_floats) are preallocated.
+// Returns a cudaError_t code, 0 when both launches were accepted.
+int ssm_scan_bwd(const void* dt, const void* x, const void* bm, const void* cm, const void* a, const void* hstart,
+                 const void* dy, const void* dh_final, void* ddt, void* dx, void* db, void* dc, void* da, void* work,
+                 int64_t work_size, int64_t batch, int64_t seq, int d_model, int st, int flags, void* stream) {
+  const BwdArgs s{dt, x, bm, cm, a, hstart, dy, dh_final,
+                  static_cast<float*>(ddt), static_cast<float*>(dx), static_cast<float*>(db),
+                  static_cast<float*>(dc), static_cast<float*>(da), static_cast<float*>(work),
+                  static_cast<int>(batch), static_cast<int>(seq), d_model, st, flags,
+                  static_cast<cudaStream_t>(stream)};
+  if (!valid(s, batch, seq, work_size)) return static_cast<int>(cudaErrorInvalidValue);
+  BwdMaps m;
+  if (!encode_all(m, s)) return static_cast<int>(cudaErrorInvalidValue);
+  return st == 16 ? launch_dt<16>(m, s) : launch_dt<8>(m, s);
 }
 
 const char* repro_cuda_error_string(int code) {

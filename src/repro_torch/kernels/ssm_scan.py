@@ -43,9 +43,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 STATES = (8, 16)  # the kernel's state widths: those of the configs with a fused scan
 TILE = 32  # the kernel's steps per tile: with checkpoints, chunk is a multiple of it
 # The checkpoint interval of SsmScanFunction: K10 recomputes one 32-step tile
-# from each checkpoint, in registers (csrc/ssm_scan_bwd.cu).  It changes the
-# memory held for the backward (B * ceil(S / 32) * D * st float32: 67 MB at
-# (1, 4096, 8192, 16)) and the recompute, not the numbers.
+# from each checkpoint, its states in registers and its decays in shared
+# memory (csrc/ssm_scan_bwd.cu).  It changes the memory held for the backward
+# (B * ceil(S / 32) * D * st float32: 67 MB at (1, 4096, 8192, 16)) and the
+# recompute, not the numbers.
 GRAD_CHUNK = TILE
 # which operands are bfloat16, as csrc/ssm_scan.cu reads them
 _FLAG_DT, _FLAG_X, _FLAG_BC, _FLAG_A, _FLAG_DY = 1, 2, 4, 8, 16
@@ -162,24 +163,27 @@ def ssm_scan(
     return _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
 
 
-def check_kernel_rules(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool) -> None:
+def check_kernel_rules(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool, dy=None) -> None:
     """Raise ``ValueError`` unless K9 takes these operands (already through
     :func:`_check`): a state width in ``STATES``; ``D`` times the element
-    size of ``dt`` and of ``x`` a multiple of 16 bytes, and every operand
-    16-byte aligned (the kernel reads them through TMA tensor maps, whose
-    rows and bases must be); with ``checkpoints``, a ``chunk`` that is a
-    multiple of ``TILE``.  Plain Python on the shapes, dtypes and
+    size of ``dt`` and of ``x`` (and of ``dy``, K10's cotangent, when given)
+    a multiple of 16 bytes, and every operand 16-byte aligned (the kernels
+    read them through TMA tensor maps, whose rows and bases must be); with
+    ``checkpoints``, a ``chunk`` that is a multiple of ``TILE``.  K10 takes
+    what it passes too (:func:`check_bwd_kernel_rules`), so both kernels
+    refuse the same operands.  Plain Python on the shapes, dtypes and
     addresses, so it runs on a CPU tensor too."""
     st, d = bmat.shape[-1], x.shape[-1]
     if st not in STATES:
         raise ValueError(f"ssm_scan: the kernel takes a state width in {STATES}, got {st}")
-    for name, t in (("dt", dt), ("x", x)):
+    rows = (("dt", dt), ("x", x)) + ((("dy", dy),) if dy is not None else ())
+    for name, t in rows:
         if d * t.element_size() % 16:
             raise ValueError(f"ssm_scan: the kernel takes D times the element size of {name} a multiple of 16 "
                              f"bytes, got D = {d} in {t.dtype}")
     if checkpoints and chunk % TILE:
         raise ValueError(f"ssm_scan: with checkpoints the kernel takes a chunk that is a multiple of {TILE}, got {chunk}")
-    if any(t.data_ptr() % 16 for t in (dt, x, bmat, cmat, a)):
+    if any(t.data_ptr() % 16 for t in (bmat, cmat, a) + tuple(t for _, t in rows)):
         raise ValueError("ssm_scan: the kernel takes operands that start 16-byte aligned")
 
 
@@ -216,11 +220,20 @@ def _bwd_symbol():
     lib = _build.load("ssm_scan_bwd")
     fn = lib.ssm_scan_bwd
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [P] * 16 + [I64, I64, I, I, I, P]
+    fn.argtypes = [P] * 14 + [I64, I64, I64, I, I, I, P]
     fn.restype = ctypes.c_int
+    lib.ssm_scan_bwd_work_floats.argtypes = [I64, I64, I, I]
+    lib.ssm_scan_bwd_work_floats.restype = I64
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib
+
+
+def bwd_work_floats(bsz: int, s: int, d: int, st: int) -> int:
+    """Float32 of the workspace one K10 call takes (asks the built kernel):
+    its partials of dB and dC, one per block of 64 channels, and the ``B``
+    partials of dA."""
+    return int(_bwd_symbol()[1].ssm_scan_bwd_work_floats(bsz, s, d, st))
 
 
 def _check_bwd(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk: int) -> None:
@@ -238,6 +251,20 @@ def _check_bwd(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk: int) -> None:
             raise ValueError(f"ssm_scan_bwd: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssm_scan_bwd: {name} must be contiguous")
+
+
+def check_bwd_kernel_rules(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk: int) -> None:
+    """Raise ``ValueError`` unless K10 takes these operands (already through
+    :func:`_check_bwd`): what :func:`check_kernel_rules` asks of K9's, with
+    ``dy``'s rows too; the checkpoints of ``chunk == TILE``, one per 32-step
+    tile, as K9 writes them for :class:`SsmScanFunction`; ``hstart``, ``dy``
+    and ``dh_final`` 16-byte aligned.  Plain Python, so it runs on a CPU
+    tensor too."""
+    check_kernel_rules(dt, x, bmat, cmat, a, chunk, True, dy=dy)
+    if chunk != TILE:
+        raise ValueError(f"ssm_scan_bwd: the kernel takes the checkpoints of chunk {TILE}, got {chunk}")
+    if any(t.data_ptr() % 16 for t in (hstart, dh_final)):
+        raise ValueError("ssm_scan: the kernel takes operands that start 16-byte aligned")
 
 
 def ssm_scan_bwd_ref(dt, x, bmat, cmat, a, hstart, dy, dh_final, *, chunk: int):
@@ -296,42 +323,32 @@ def ssm_scan_bwd(
     st), dA (D, st))``, all float32, as the reference's ``_bwd_call``.
 
     A CUDA tensor launches the kernel (and counts one in
-    ``ssm_scan_bwd.launches``); it takes the checkpoints K9 writes for
-    ``chunk == TILE`` (one per 32-step tile), ``st`` in ``STATES``, ``D`` a
-    multiple of 4 and operands that start 16-byte aligned.  Two launches on
-    the same operands give the same bits (no atomics).  A CPU tensor takes
-    :func:`ssm_scan_bwd_ref`.
+    ``ssm_scan_bwd.launches``) on the operands
+    :func:`check_bwd_kernel_rules` passes, and raises on others.  Two
+    launches on the same operands give the same bits (no atomics).  A CPU
+    tensor takes :func:`ssm_scan_bwd_ref`.
     """
     _check_bwd(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk)
     if x.device.type == "cpu":
         return ssm_scan_bwd_ref(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk=chunk)
+    check_bwd_kernel_rules(dt, x, bmat, cmat, a, hstart, dy, dh_final, chunk)
     bsz, s, d = x.shape
     st = bmat.shape[-1]
-    if st not in STATES:
-        raise ValueError(f"ssm_scan_bwd: the kernel takes a state width in {STATES}, got {st}")
-    if d % 4:
-        raise ValueError(f"ssm_scan_bwd: the kernel takes D a multiple of 4, got {d}")
-    if chunk != TILE:
-        raise ValueError(f"ssm_scan_bwd: the kernel takes the checkpoints of chunk {TILE}, got {chunk}")
-    if any(t.data_ptr() % 16 for t in (dt, x, bmat, cmat, a, hstart, dy, dh_final)):
-        raise ValueError("ssm_scan_bwd: the kernel takes operands that start 16-byte aligned")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     ddt, dx = torch.empty((bsz, s, d), **f32), torch.empty((bsz, s, d), **f32)
     db, dc = torch.empty((bsz, s, st), **f32), torch.empty((bsz, s, st), **f32)
     da = torch.empty((d, st), **f32)
-    n_dtiles = -(-d // 32)
-    part_b, part_c = torch.empty((bsz, n_dtiles, s, st), **f32), torch.empty((bsz, n_dtiles, s, st), **f32)
-    part_a = torch.empty((bsz, d, st), **f32)
+    fn, lib = _bwd_symbol()
+    n_work = bwd_work_floats(bsz, s, d, st)
+    work = torch.empty((n_work,), **f32)
     bf16 = torch.bfloat16
     flags = ((_FLAG_DT if dt.dtype == bf16 else 0) | (_FLAG_X if x.dtype == bf16 else 0)
              | (_FLAG_BC if bmat.dtype == bf16 else 0) | (_FLAG_A if a.dtype == bf16 else 0)
              | (_FLAG_DY if dy.dtype == bf16 else 0))
-    fn, lib = _bwd_symbol()
-    ptrs = [t.data_ptr() for t in (dt, x, bmat, cmat, a, hstart, dy, dh_final, ddt, dx, db, dc, da,
-                                   part_b, part_c, part_a)]
+    ptrs = [t.data_ptr() for t in (dt, x, bmat, cmat, a, hstart, dy, dh_final, ddt, dx, db, dc, da, work)]
     with torch.cuda.device(dev):
-        err = fn(*ptrs, bsz, s, d, st, flags, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*ptrs, n_work, bsz, s, d, st, flags, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan_bwd launch failed: {lib.repro_cuda_error_string(err).decode()} (cudaError {err})")
     ssm_scan_bwd.launches += 1

@@ -12,6 +12,8 @@ reference's own for its backward against ``jax.grad`` of its oracle
 """
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -154,3 +156,57 @@ def test_bwd_wrapper_checks_and_counts_no_cpu_launch():
         ks.ssm_scan_bwd(*ops, hstart, dy.transpose(1, 2).contiguous().transpose(1, 2), dh, chunk=chunk)
     assert ks.bwd_hbm_bytes(1, 4096, 8192, 16, 32) == jax_scan.bwd_hbm_bytes(1, 4096, 8192, 16, 32)
     assert ks.bwd_hbm_bytes(2, 21, 8, 4, 8, elem=4) == jax_scan.bwd_hbm_bytes(2, 21, 8, 4, 8, elem=4)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
+    return chip
+
+
+def _bwd_operands(bsz, s, d, st, act, dy_dtype=None):
+    """Zero operands of K10 in the model's dtypes (dt float32, the rest in
+    ``act``; dy in ``dy_dtype`` when given), freshly allocated."""
+    z = functools.partial(torch.zeros, dtype=act)
+    return (torch.zeros((bsz, s, d)), z((bsz, s, d)), z((bsz, s, st)), z((bsz, s, st)), z((d, st)),
+            torch.zeros((bsz, -(-s // ks.TILE), d, st)), torch.zeros((bsz, s, d), dtype=dy_dtype or act),
+            torch.zeros((bsz, d, st)))
+
+
+# (B, S, D, st), the activations' dtype, dy's dtype (None: the activations'),
+# chunk, and the message K10's rules raise with (None: the kernel takes them)
+BWD_RULE_CASES = [(edge, act, None, ks.TILE, None) for edge in _chip_smoke().BWD_EDGES
+                  for act in (torch.bfloat16, torch.float32)] + [
+    ((1, 4, 20, 16), torch.bfloat16, None, ks.TILE, "element size of x"),  # 40 bytes a row
+    ((1, 4, 20, 16), torch.float32, torch.bfloat16, ks.TILE, "element size of dy"),
+    ((1, 4, 20, 4), torch.float32, None, ks.TILE, "state width"),
+    ((1, 40, 8, 16), torch.float32, None, 64, "checkpoints of chunk 32"),
+]
+
+
+@pytest.mark.parametrize("shape,act,dy_dtype,chunk,raises", BWD_RULE_CASES)
+def test_bwd_kernel_rules_on_cpu_shapes_and_dtypes(shape, act, dy_dtype, chunk, raises):
+    """K10's rules, K9's with dy's rows and its chunk, run on CPU tensors:
+    every edge shape of the chip phase passes, a bfloat16 D = 20 does not."""
+    ops = list(_bwd_operands(*shape, act, dy_dtype))
+    if chunk != ks.TILE:
+        ops[5] = torch.zeros((shape[0], -(-shape[1] // chunk), shape[2], shape[3]))
+    if raises is None:
+        ks.check_bwd_kernel_rules(*ops, chunk)
+    else:
+        with pytest.raises(ValueError, match=raises):
+            ks.check_bwd_kernel_rules(*ops, chunk)
+    ks.ssm_scan_bwd.launches = 0
+    ks.ssm_scan_bwd(*ops, chunk=chunk)  # the CPU takes the plain version all the same
+    assert ks.ssm_scan_bwd.launches == 0
+
+
+def test_bwd_and_fwd_rules_refuse_the_same_operands():
+    """What K9's rules refuse, K10's refuse too, with the same message."""
+    ops = _bwd_operands(1, 4, 20, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="element size of x") as fwd:
+        ks.check_kernel_rules(*ops[:5], ks.TILE, True)
+    with pytest.raises(ValueError, match="element size of x") as bwd:
+        ks.check_bwd_kernel_rules(*ops, ks.TILE)
+    assert str(fwd.value) == str(bwd.value)
