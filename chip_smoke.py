@@ -14,12 +14,14 @@ Phases (any failure raises, and the script exits non-zero):
    int16 and int32 keys drawn from adversarial rows, then whole top-k
    sorts at (1, 32000) and (64, 32000); with CUDA-event times of the
    kernel, the plain version and one stable ``torch.sort`` (a yardstick the
-   port never calls);
-4. merge and sort at 2 x 2^24 elements (:func:`phase_merge_sort`): K1, K2
-   and K3 against their plain versions, bit for bit, over adversarial input
-   families; the whole path (``ops.merge``, ``ops.merge_kv``, ``ops.sort``,
-   ``ops.sort_batched``) driven once with the launch counts read; CUDA-event
-   times of each kernel, its plain version and one PyTorch call;
+   port never calls); S1 with values on one sampled row's keys;
+4. merge and sort at 2 x 2^24 elements (:func:`phase_merge_sort`): K1, K2,
+   K3 and the tile sort S1 (keys alone and with values) against their plain
+   versions, bit for bit, over adversarial input families; the whole path
+   (``ops.merge``, ``ops.merge_kv``, ``ops.sort``, ``ops.sort_batched``)
+   driven once with the launch counts read; CUDA-event times of each
+   kernel, its plain version and one PyTorch call; ``ops.sort`` beside one
+   stable ``torch.sort`` and split into S1, K3's rounds and the rest;
 5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
    K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
    (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
@@ -31,14 +33,14 @@ Phases (any failure raises, and the script exits non-zero):
    whole ``ops`` call;
 6. serving: ``ServingEngine`` on tinyllama-1.1b at full width (random
    weights from a seed), 4 requests with top-k sampling; the K4 launch
-   count must be 6 per sampled token.  Then the reduced config on the card
+   count must be 6 per sampled token, S1's 1.  Then the reduced config on the card
    against the same weights on the CPU;
 7. SSM (:func:`phase_ssm`): K9, the fused selective scan, against its plain
    version at falcon-mamba's layer shapes (D = 8192, state 16) and at edge
    shapes; falcon-mamba-7b at full width (random weights from a seed, fused
    scan) prefilled on a (1, 32768) prompt with ``make_prefill_step`` (K9
-   once per layer: 64 launches), then 16 tokens sampled with top-k 40 on K4
-   through ``make_decode_step``; K9 on layer 0's own inputs, twice
+   once per layer: 64 launches), then 16 tokens sampled with top-k 40 on S1
+   and K4 through ``make_decode_step``; K9 on layer 0's own inputs, twice
    bit-identical, with and without checkpoints; a bfloat16 x of rows that
    break K9's 16-byte rule raises; prefill against stepping at full width;
    the reduced config on the card against the CPU; CUDA-event times of K9
@@ -157,7 +159,7 @@ def phase_k4(gen) -> dict:
     from repro_torch.core import topk_batched as core_topk
     from repro_torch.core.merge_path import flip_desc, total_order_keys
     from repro_torch.kernels import ops
-    from repro_torch.kernels.merge_path import sort_round_kv, sort_round_kv_ref
+    from repro_torch.kernels.merge_path import sort_round_kv, sort_round_kv_ref, sort_tiles_kv, sort_tiles_kv_ref
 
     max_err = 0
     cases = 0
@@ -208,6 +210,22 @@ def phase_k4(gen) -> dict:
             compare(ops.topk_batched(x, k), core_topk(x, k), f"topk_batched ({bsz}, 32000) k={k}")
     torch.cuda.synchronize()
 
+    # S1 with values at the sampler's shape: the int16 total-order keys of one
+    # row of bfloat16 logits and their indices, chunk T (its one launch per token)
+    keys = total_order_keys(flip_desc(adversarial_floats("logits", M, torch.bfloat16, gen)))
+    idx = torch.arange(M, dtype=torch.int32, device="cuda")
+    tiles_err = max(bit_err(g, w, f"sort_tiles_kv sampler row {part}") for g, w, part in
+                    zip(sort_tiles_kv(keys, idx, TILE), sort_tiles_kv_ref(keys, idx, TILE), ("keys", "values")))
+    bound = tiles_bound(M, 2, values=True)
+    tiles_kv = {"max_abs_err": tiles_err, "ms": time_ms(lambda: sort_tiles_kv(keys, idx, TILE)),
+                "plain_ms": time_ms(lambda: sort_tiles_kv_ref(keys, idx, TILE)),
+                "library_ms": time_ms(lambda: torch.gather(idx.view(-1, TILE), 1,
+                                                           torch.sort(keys.view(-1, TILE), dim=1, stable=True).indices)),
+                "bound_ms": bound["ms"], "bound_by": bound["by"]}
+    print(f"S1 kv (1, {M}) int16 keys, int32 values, chunk {TILE}: kernel_ms {tiles_kv['ms']:.5f}  plain_ms "
+          f"{tiles_kv['plain_ms']:.5f}  library_ms {tiles_kv['library_ms']:.5f}  bound_ms {tiles_kv['bound_ms']:.6f} "
+          f"({tiles_kv['bound_by']})")
+
     print("K4 per round (m=32768+512, T=512, S=32; CUDA events):")
     for (kd, w), r in rounds.items():
         print(f"  {kd:12s} width {w:5d}: kernel_ms {r['kernel_ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
@@ -221,6 +239,7 @@ def phase_k4(gen) -> dict:
         "library_ms": sum(r["library_ms"] for r in main_path),
         "bound_ms": sum(r["bound"]["ms"] for r in main_path),
         "bound_by": main_path[0]["bound"]["by"],
+        "tiles_kv": tiles_kv,
     }
 
 
@@ -281,6 +300,42 @@ def merge_bound(n: int, bytes_per_element: int) -> dict:
     return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+TILE_KINDS = ("random", "all_equal", "sorted", "reverse", "few", "iinfo_max")
+TILE_CHUNKS = (128, 256, 512)
+
+
+def tile_keys(kind: str, n: int, dtype, gen, device: str):
+    """Keys of one tile-sort case, ``(n,)``: ``random`` over the whole
+    range; ``all_equal``; ``sorted`` and ``reverse`` (every chunk sorted
+    one way or the other); ``few``: 3 distinct keys; ``iinfo_max``: half
+    the keys equal to the dtype's largest, the sentinel's value."""
+    import torch
+
+    info = torch.iinfo(dtype)
+    small = torch.randint(-1000, 1000, (n,), generator=gen, device=device)
+    if kind == "random":
+        x = torch.randint(info.min, info.max + 1, (n,), generator=gen, device=device, dtype=torch.int64)
+    elif kind == "all_equal":
+        x = torch.full((n,), 7, device=device)
+    elif kind in ("sorted", "reverse"):
+        x = torch.sort(small, descending=kind == "reverse").values
+    elif kind == "few":
+        x = torch.randint(-1, 2, (n,), generator=gen, device=device)
+    elif kind == "iinfo_max":
+        x = torch.where(torch.rand(n, generator=gen, device=device) < 0.5, info.max, small)
+    else:
+        raise ValueError(kind)
+    return x.to(dtype).contiguous()
+
+
+def tiles_bound(n: int, key_bytes: int, values: bool) -> dict:
+    """Least time of one tile sort of n keys: each key (and value) read once
+    and written once, against about log2(C) comparisons per element."""
+    t_bytes = 2 * n * (key_bytes + (4 if values else 0)) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * math.log2(TILE) / SCALAR_OPS_PER_S * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def wide_rounds(n: int, tile: int) -> int:
     """K3/K4 launches of one sort of rows of n: widths tile ... m / 2."""
     m = 1 << max(0, (n - 1).bit_length())
@@ -289,12 +344,16 @@ def wide_rounds(n: int, tile: int) -> int:
 
 def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), tile: int = TILE,
                      leaf: int = LEAF, seed: int = 1) -> dict:
-    """K1, K2 and K3 on the merge-and-sort path at ``2 x 2^log2n`` elements.
+    """K1, K2, K3 and the tile sort S1 on the merge-and-sort path at
+    ``2 x 2^log2n`` elements.
 
-    Every merge and every round is held against the kernel's plain version
-    bit for bit, the whole path is driven once through ``kernels.ops`` with
-    the launch counts set to 0 just before it, and on the card each kernel
-    is timed beside its plain version, its bound and one PyTorch call.
+    Every merge, every round and every tile sort (keys alone and with
+    values, over ``TILE_KINDS`` and ``TILE_CHUNKS``) is held against the
+    kernel's plain version bit for bit, the whole path is driven once
+    through ``kernels.ops`` with the launch counts set to 0 just before it,
+    and on the card each kernel is timed beside its plain version, its
+    bound and one PyTorch call, and ``ops.sort`` is split into its tile
+    sort, its wide rounds and the rest.
     With ``device="cpu"`` (the tests, at a small size) the wrappers run
     their plain versions, nothing is launched or timed, and every check
     still runs.
@@ -309,7 +368,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     n1 = 1 << log2n
-    errs = {"merge": 0, "merge_kv": 0, "sort_round": 0}
+    errs = {"merge": 0, "merge_kv": 0, "sort_round": 0, "sort_tiles": 0, "sort_tiles_kv": 0}
     cases = dict.fromkeys(errs, 0)
 
     def launched(fn, call, n_launches):
@@ -367,20 +426,66 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     def shuffled(kind, dtype):
         return sorted_side(kind, n1, dtype, gen, device)[torch.randperm(n1, generator=gen, device=device)]
 
+    def round_case(xf, w, t, what):
+        got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=t, leaf=leaf), 1)
+        errs["sort_round"] = max(errs["sort_round"], bit_err(got, km.sort_round_ref(xf, w, tile=t), what))
+        cases["sort_round"] += 1
+
+    # every width the path runs, and the narrowest a round takes (tile / 2)
     widths = [tile << i for i in range(wide_rounds(n1, tile))]
-    for dtype, kind in ((torch.int32, "random"), (torch.int32, "sentinel"), (torch.int16, "dups")):
+    for dtype, kind in ((torch.int32, "random"), (torch.int32, "sentinel"), (torch.int16, "dups"),
+                        (torch.int16, "sentinel")):
         keys = shuffled(kind, dtype)
-        for w in widths:
-            xf = round_keys(keys, w)
-            got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=tile, leaf=leaf), 1)
-            what = f"sort_round {dtype} {kind} width {w}"
-            errs["sort_round"] = max(errs["sort_round"], bit_err(got, km.sort_round_ref(xf, w, tile=tile), what))
-            cases["sort_round"] += 1
+        for w in [tile // 2] + widths:
+            round_case(round_keys(keys, w), w, tile, f"sort_round {dtype} {kind} width {w}")
         got = launched(km.sort_round, lambda: ops.sort(keys, tile=tile, leaf=leaf), len(widths))
         bit_err(got, torch.sort(keys, stable=True).values, f"ops.sort {dtype} {kind} 2^{log2n}")
+    # pairs narrower than a thread's 16 outputs (tiles below 16), and keys
+    # that start off a 16-byte boundary
+    for t in (2, 4, 8):
+        keys = shuffled("dups", torch.int16)[: n1 // 16]
+        for w in (t // 2, t):
+            xf = torch.cat([round_keys(keys, w)[: n1 // 16], torch.full((t,), max_sentinel(torch.int16), dtype=torch.int16, device=device)])
+            round_case(xf, w, t, f"sort_round tile {t} width {w}")
+    keys = shuffled("sentinel", torch.int32)
+    for w in (tile // 2, n1 // 4):
+        xf = torch.cat([keys[:1], round_keys(keys, w)])[1:]  # one element past an aligned start
+        round_case(xf, w, tile, f"sort_round off a 16-byte boundary width {w}")
     rows = torch.randint(-(2**31), 2**31 - 1, batch, generator=gen, device=device, dtype=torch.int64).to(torch.int32)
     got = launched(km.sort_round, lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), wide_rounds(batch[1], tile))
     bit_err(got, torch.sort(rows, dim=1, stable=True).values, f"ops.sort_batched {tuple(batch)}")
+
+    # S1: every family, both key dtypes, keys alone and with values, chunks
+    # 128 ... 512 at one chunk, 2^16 and 2^log2n keys; against the plain
+    # version and a stable torch.sort of the chunks
+    for dtype in (torch.int16, torch.int32):
+        for c in TILE_CHUNKS:
+            for n in sorted({c, 1 << min(16, log2n), n1}):
+                for kind in TILE_KINDS:
+                    x = tile_keys(kind, n, dtype, gen, device)
+                    v = torch.arange(n, dtype=torch.int32, device=device)
+                    what = f"sort_tiles {dtype} {kind} chunk {c} n {n}"
+                    got = launched(km.sort_tiles, lambda: km.sort_tiles(x, c), 1)
+                    errs["sort_tiles"] = max(errs["sort_tiles"], bit_err(got, km.sort_tiles_ref(x, c), what))
+                    ks, perm = torch.sort(x.view(-1, c), dim=1, stable=True)
+                    bit_err(got, ks.reshape(-1), what + " vs torch.sort")
+                    gk, gv = launched(km.sort_tiles_kv, lambda: km.sort_tiles_kv(x, v, c), 1)
+                    for g, w, part in zip((gk, gv), km.sort_tiles_kv_ref(x, v, c), ("keys", "values")):
+                        errs["sort_tiles_kv"] = max(errs["sort_tiles_kv"], bit_err(g, w, f"{what} kv {part}"))
+                    bit_err(gv, torch.gather(v.view(-1, c), 1, perm).reshape(-1), what + " kv values vs torch.sort")
+                    cases["sort_tiles"] += 1
+                    cases["sort_tiles_kv"] += 1
+    x = tile_keys("few", n1 + 1, torch.int16, gen, device)[1:]  # off a 16-byte boundary
+    v = torch.arange(n1 + 1, dtype=torch.int32, device=device)[1:]
+    for c in (c for c in (2, 8, 16, 32, 4096) if c <= n1):  # runs inside one thread, one warp, one block
+        what = f"sort_tiles int16 off a 16-byte boundary chunk {c}"
+        errs["sort_tiles"] = max(errs["sort_tiles"], bit_err(launched(km.sort_tiles, lambda: km.sort_tiles(x, c), 1),
+                                                             km.sort_tiles_ref(x, c), what))
+        got = launched(km.sort_tiles_kv, lambda: km.sort_tiles_kv(x, v, c), 1)
+        for g, w, part in zip(got, km.sort_tiles_kv_ref(x, v, c), ("keys", "values")):
+            errs["sort_tiles_kv"] = max(errs["sort_tiles_kv"], bit_err(g, w, f"{what} kv {part}"))
+        cases["sort_tiles"] += 1
+        cases["sort_tiles_kv"] += 1
 
     # the result must not depend on (T, S): other tiles and leaves, odd lengths
     for t, s in ((32, 1), (128, 8), (384, 24), (1000, 32), (4096, 64)):
@@ -403,10 +508,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         for w in sorted({max(1, t // 2), n1 // 4}):
             if t <= 2 * w <= n1:
                 xf = torch.cat([round_keys(keys, w)[:n1], torch.full((t,), max_sentinel(torch.int32), dtype=torch.int32, device=device)])
-                got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=t, leaf=s), 1)
-                errs["sort_round"] = max(errs["sort_round"], bit_err(got, km.sort_round_ref(xf, w, tile=t),
-                                                                      f"sort_round tile {t} leaf {s} width {w}"))
-                cases["sort_round"] += 1
+                round_case(xf, w, t, f"sort_round tile {t} leaf {s} width {w}")
 
     # the path, driven once through the public surface with every count at 0
     a, b = (sorted_side("random", n1, torch.float32, gen, device) for _ in range(2))
@@ -421,16 +523,16 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     sorted_rows = ops.sort_batched(rows, tile=tile, leaf=leaf)
     launches = {fn.__name__: fn.launches for fn in km.WRAPPERS}
     want = dict.fromkeys(launches, 0)
-    want.update(merge=1, merge_kv=1, sort_round=len(widths) + wide_rounds(batch[1], tile))
+    want.update(merge=1, merge_kv=1, sort_round=len(widths) + wide_rounds(batch[1], tile), sort_tiles=2)
     check(launches == (want if on_card else dict.fromkeys(want, 0)), f"path launched {launches}, want {want}")
     bit_err(merged, km.merge_ref(a, b), "path: ops.merge")
     for g, w, part in zip((mk, mv), km.merge_kv_ref(ak, av, bk, bv), ("keys", "values")):
         bit_err(g, w, f"path: ops.merge_kv {part}")
     bit_err(sorted_keys, torch.sort(keys, stable=True).values, "path: ops.sort")
     bit_err(sorted_rows, torch.sort(rows, dim=1, stable=True).values, "path: ops.sort_batched")
-    print(f"merge/sort: {cases['merge']} K1 merges, {cases['merge_kv']} K2 merges and {cases['sort_round']} K3 rounds "
-          f"against their plain versions at 2^{log2n} per side, tolerance 0 (bit-identical), max abs err "
-          f"{max(errs.values())}; the path launched {launches}")
+    print(f"merge/sort: {cases['merge']} K1 merges, {cases['merge_kv']} K2 merges, {cases['sort_round']} K3 rounds "
+          f"and {cases['sort_tiles']} S1 tile sorts with and without values against their plain versions at 2^{log2n} "
+          f"per side, tolerance 0 (bit-identical), max abs err {max(errs.values())}; the path launched {launches}")
 
     out = {name: {"launches": launches[name], "max_abs_err": errs[name], "ms": None, "plain_ms": None,
                   "library_ms": None, "bound_ms": None, "bound_by": None} for name in errs}
@@ -469,14 +571,29 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         ms=sum(r["ms"] for r in rounds), plain_ms=sum(r["plain_ms"] for r in rounds),
         library_ms=sum(r["library_ms"] for r in rounds), bound_ms=sum(r["bound"]["ms"] for r in rounds),
         bound_by=rounds[0]["bound"]["by"])
-    # the public calls whole, narrow rounds and host dispatch included
+    # S1 at the path's chunk, on the keys ops.sort hands it
+    chunk = min(n1, tile)
+    bound = tiles_bound(n1, 4, values=False)
+    out["sort_tiles"].update(ms=time_ms(lambda: km.sort_tiles(keys, chunk)),
+                             plain_ms=time_ms(lambda: km.sort_tiles_ref(keys, chunk), iters=5),
+                             library_ms=time_ms(lambda: torch.sort(keys.view(-1, chunk), dim=1, stable=True)),
+                             bound_ms=bound["ms"], bound_by=bound["by"])
+    r = out["sort_tiles"]
+    print(f"  S1 int32 2^{log2n} chunk {chunk}: kernel_ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
+          f"library_ms {r['library_ms']:.5f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    # the public calls whole, host dispatch included; ops.sort beside one stable torch.sort
     whole = {
         "ops.merge": time_ms(lambda: ops.merge(a, b, tile=tile, leaf=leaf)),
         "ops.merge_kv": time_ms(lambda: ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf)),
         f"ops.sort 2^{log2n}": time_ms(lambda: ops.sort(keys, tile=tile, leaf=leaf), iters=5),
+        f"torch.sort 2^{log2n} (stable)": time_ms(lambda: torch.sort(keys, stable=True), iters=5),
         f"ops.sort_batched {tuple(batch)}": time_ms(lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), iters=5),
     }
     print("  whole calls (CUDA events): " + ", ".join(f"{k} {v:.5f} ms" for k, v in whole.items()))
+    sort_ms = whole[f"ops.sort 2^{log2n}"]
+    print(f"  ops.sort 2^{log2n} split: tile sort {r['ms']:.5f} ms, {len(rounds)} wide rounds "
+          f"{out['sort_round']['ms']:.5f} ms, the rest (padding, tail, slicing, dispatch) "
+          f"{sort_ms - r['ms'] - out['sort_round']['ms']:.5f} ms of {sort_ms:.5f} ms")
     return out
 
 
@@ -685,7 +802,7 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     rounds = sum(max(0, (r.shape[0] - 1).bit_length()) for _, r, _ in kway)
     want = dict.fromkeys(launches, 0)
     want.update(merge_batched=1, merge_kv_batched=1, merge_batched_ragged=1 + rounds, merge_kv_batched_ragged=1,
-                sort_round_kv=wide_rounds(vocab, tile))
+                sort_round_kv=wide_rounds(vocab, tile), sort_tiles_kv=1)
     check(launches == (want if on_card else dict.fromkeys(want, 0)), f"batched path launched {launches}, want {want}")
 
     # what the path returned, against the plain versions and torch.sort
@@ -807,7 +924,7 @@ def phase_serving() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import reset_launches
-    from repro_torch.kernels.merge_path import sort_round_kv
+    from repro_torch.kernels.merge_path import sort_round_kv, sort_tiles_kv
     from repro_torch.models import forward_decode, init_caches, init_params
     from repro_torch.serving import Request, ServingEngine, topk_sample
 
@@ -830,6 +947,7 @@ def phase_serving() -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = sort_round_kv.launches
+    tiles_launches = sort_tiles_kv.launches
 
     tokens = [t for r in engine.done.values() for t in r.generated]
     check(report.ok(), f"serving report not ok: {report.statuses} {report.reasons}")
@@ -837,8 +955,10 @@ def phase_serving() -> dict:
     check(report.completed == 4 and len(engine.done) == 4, f"completed {report.completed} of 4")
     check(all(0 <= t < cfg.vocab_size for t in tokens), f"token out of range: {tokens}")
     check(launches == 6 * len(tokens), f"K4 launched {launches} times for {len(tokens)} sampled tokens (want 6 each)")
+    check(tiles_launches == len(tokens), f"S1 launched {tiles_launches} times for {len(tokens)} sampled tokens (want 1 each)")
     print(f"serving: 4 requests, {len(tokens)} sampled tokens in {seconds:.3f} s "
-          f"({seconds * 1e3 / len(tokens):.2f} ms/token, prefill included), K4 launches {launches}")
+          f"({seconds * 1e3 / len(tokens):.2f} ms/token, prefill included), K4 launches {launches}, "
+          f"S1 launches {tiles_launches}")
 
     # breakdown at the same shapes: one lockstep decode step, one sampled token
     caches = init_caches(cfg, 2, 64, device="cuda")
@@ -852,7 +972,8 @@ def phase_serving() -> dict:
     print(f"serving: decode step (batch 2) {step_ms:.3f} ms, one top-k sample (1, 32000) {sample_ms:.3f} ms (CUDA events)")
     del params, engine, caches
     torch.cuda.empty_cache()
-    return {"launches": launches, "tokens": len(tokens), "ms_per_token": seconds * 1e3 / len(tokens)}
+    return {"launches": launches, "tiles_launches": tiles_launches, "tokens": len(tokens),
+            "ms_per_token": seconds * 1e3 / len(tokens)}
 
 
 def _leaves(tree):
@@ -1091,7 +1212,7 @@ def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     k4_rounds = wide_rounds(cfg.vocab_size, pick(cfg.vocab_size)[0])
     want = dict.fromkeys(launches, 0)
-    want.update(ssm_scan=cfg.num_layers, sort_round_kv=new_tokens * k4_rounds)
+    want.update(ssm_scan=cfg.num_layers, sort_round_kv=new_tokens * k4_rounds, sort_tiles_kv=new_tokens)
     check(prefill_k9 == (cfg.num_layers if on_card else 0), f"prefill launched K9 {prefill_k9} times")
     check(launches == (want if on_card else dict.fromkeys(want, 0)), f"ssm path launched {launches}, want {want}")
     ids = torch.cat(sampled)
@@ -1570,6 +1691,22 @@ def k10_registers(log: str) -> str:
     return "K10 (ptxas -v): " + ("; ".join(parts) if parts else "built before this run, so no ptxas log")
 
 
+def sort_registers(built: dict) -> str:
+    """K3's and S1's registers a thread and spill bytes, per instantiation,
+    from the ``ptxas -v`` logs of ``sort_round.cu`` and ``sort_tiles.cu``."""
+    import re
+
+    parts = []
+    for source, label in (("sort_round", "K3"), ("sort_tiles", "S1")):
+        rows = ptxas_kernels(built[source].ptxas)
+        check(bool(rows) or not built[source].ptxas, f"no kernel in the ptxas log of {source}.cu")
+        for kernel, used, spills in rows:
+            regs = re.search(r"Used (\d+) registers", used).group(1)
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
+            parts.append(f"{label} {kernel}: {regs} registers, {spill} bytes of spill stores and loads")
+    return "sort kernels (ptxas -v): " + ("; ".join(parts) if parts else "built before this run, so no ptxas log")
+
+
 def main() -> int:
     import torch
 
@@ -1592,6 +1729,7 @@ def main() -> int:
         for kernel, used, spills in ptxas_kernels(b.ptxas):
             print(f"  ptxas {kernel}: {used}; {spills}")
     k10_regs = k10_registers(built["ssm_scan_bwd"].ptxas)
+    print(sort_registers(built))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1618,6 +1756,13 @@ def main() -> int:
     kernels += [entry(name, "merge.cu", line, batched[name]["launches"], batched[name])
                 for name, line in (("merge_batched", 543), ("merge_kv_batched", 562),
                                    ("merge_batched_ragged", 721), ("merge_kv_batched_ragged", 749))]
+    # S1 has no Pallas counterpart: it replaces the reference's narrow rounds in XLA
+    kernels.append(dict(entry("sort_tiles", "sort_tiles.cu", 0, merge_sort["sort_tiles"]["launches"],
+                              merge_sort["sort_tiles"]), replaces="src/repro/kernels/ops.py:558"))
+    kernels.append(dict(entry("sort_tiles_kv", "sort_tiles.cu", 0, serving["tiles_launches"],
+                              dict(k4["tiles_kv"], max_abs_err=max(merge_sort["sort_tiles_kv"]["max_abs_err"],
+                                                                   k4["tiles_kv"]["max_abs_err"]))),
+                        replaces="src/repro/kernels/ops.py:581"))
     kernels.append(dict(entry("ssm_scan", "ssm_scan.cu", 79, ssm["launches"], ssm),
                         replaces="src/repro/kernels/ssm_scan.py:79"))
     kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
@@ -1627,8 +1772,13 @@ def main() -> int:
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
           "concatenation (merge_kv: and the gather of the values); sort_round's are sums over the 15 wide rounds "
           "of one ops.sort of 2^24 int32 keys, library_ms the stable torch.sort of each round's pair view; the "
-          "launches of merge, merge_kv and sort_round are those of one ops.merge, ops.merge_kv, ops.sort (2^24) "
-          "and ops.sort_batched (64, 65536); merge_batched's, merge_kv_batched's, merge_batched_ragged's and "
+          "launches of merge, merge_kv, sort_round and sort_tiles are those of one ops.merge, ops.merge_kv, ops.sort "
+          "(2^24) and ops.sort_batched (64, 65536); sort_tiles' (S1, the narrow rounds in one launch; no Pallas "
+          "kernel: it replaces the reference's XLA loop) are one call on the 2^24 int32 keys of that ops.sort at "
+          "chunk 512, library_ms one stable torch.sort of the (32768, 512) chunk view; sort_tiles_kv's are one call "
+          "on a sampled token's (1, 32768) int16 keys and int32 indices at chunk 512, library_ms the chunks' stable "
+          "torch.sort and the gather of the values, its launches those of the serving run (one per sampled token); "
+          "merge_batched's, merge_kv_batched's, merge_batched_ragged's and "
           "merge_kv_batched_ragged's are one call at (64, 2^18) + (64, 2^18) (float32 keys; int32 keys and values; "
           "the ragged ones with the lengths of the path's run), library_ms one stable row-wise torch.sort of a‖b "
           "(the ragged ones: of the rows masked past their lengths; kv: and the gather of the values), their launches "

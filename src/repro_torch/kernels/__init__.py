@@ -2,9 +2,9 @@
 
 Importing this package builds nothing; ``nvcc`` runs at the first launch
 on a CUDA tensor (see :mod:`repro_torch.kernels._build`).  ``WRAPPERS``
-lists every kernel wrapper (the merge-path kernels K1-K8 and the
-selective scan's forward K9 and backward K10); :func:`reset_launches`
-sets all their launch counts to 0.
+lists every kernel wrapper (the merge-path kernels K1-K8, the tile sort
+S1 and the selective scan's forward K9 and backward K10);
+:func:`reset_launches` sets all their launch counts to 0.
 """
 
 from . import merge_path, ops, ssm_scan
@@ -27,6 +27,10 @@ from .merge_path import (
     sort_round_kv,
     sort_round_kv_ref,
     sort_round_ref,
+    sort_tiles,
+    sort_tiles_kv,
+    sort_tiles_kv_ref,
+    sort_tiles_ref,
 )
 WRAPPERS = merge_path.WRAPPERS + (ssm_scan.ssm_scan, ssm_scan.ssm_scan_bwd)
 
@@ -59,5 +63,9 @@ __all__ = [
     "sort_round_kv",
     "sort_round_kv_ref",
     "sort_round_ref",
+    "sort_tiles",
+    "sort_tiles_kv",
+    "sort_tiles_kv_ref",
+    "sort_tiles_ref",
     "ssm_scan",
 ]

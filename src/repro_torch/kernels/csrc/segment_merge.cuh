@@ -1,0 +1,158 @@
+// The paper's per-thread segment merge in shared memory, for Hopper (sm_90a).
+//
+// Shared by K3's wide sort round (sort_round.cu) and the tile sort S1
+// (sort_tiles.cu).  Each thread owns E consecutive outputs of a merge: it
+// finds its diagonal with one co-rank (Algorithm 2) over the two sorted
+// inputs in shared memory, then merges its E outputs sequentially into
+// registers with one comparison and one shared-memory read each (the
+// Segmented Parallel Merge of the paper, one core per thread).  The merge is
+// stable with A-priority; sides end by index, never by comparing against a
+// sentinel, so keys equal to iinfo.max are data.
+//
+// Shared-memory layout: element i of a buffer lives at slot spad<T>(i), with
+// one 4-byte word of padding after every 128 bytes.  A thread's E outputs
+// (stride E between lanes, E a power of two up to 16 4-byte keys) and the
+// striped copies to and from device memory then hit 32 distinct banks.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "merge_tile.cuh"
+
+namespace repro {
+
+// The slot of element i in a padded shared-memory buffer of T.
+template <typename T>
+__device__ __forceinline__ int spad(int i) {
+  constexpr int kRow = 128 / sizeof(T);
+  constexpr int kPad = 4 / sizeof(T);
+  return i + (i / kRow) * kPad;
+}
+
+// Slots a padded buffer of n elements needs, rounded up to 16 bytes so that
+// buffers laid end to end keep their banks.
+template <typename T>
+__host__ __device__ constexpr int spad_slots(int n) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  return (n + (n / (128 / static_cast<int>(sizeof(T))) + 1) * (4 / static_cast<int>(sizeof(T))) + kVec - 1) /
+         kVec * kVec;
+}
+
+// Co-rank over a padded buffer: the number of A elements among the first d
+// outputs of the merge of A = s[a0 : a0 + na] and B = s[b0 : b0 + nb].
+template <typename K>
+__device__ __forceinline__ int co_rank_padded(const K* s, int a0, int na, int b0, int nb, int d) {
+  int lo = max(0, d - nb);
+  int hi = min(d, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key_le(s[spad<K>(a0 + mid)], s[spad<K>(b0 + d - 1 - mid)])) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Outputs d .. d + e - 1 (e <= E, d + e <= na + nb) of the stable A-priority
+// merge of A = sk[a0 : a0 + na] and B = sk[b0 : b0 + nb] into ok[0 : e] (and
+// the values of sv into ov).  The element after each side's end is read but
+// never used, so the buffer holds one slot past max(a0 + na, b0 + nb).
+template <typename K, bool kValues, int E>
+__device__ __forceinline__ void merge_segment(const K* sk, const uint32_t* sv, int a0, int na, int b0,
+                                              int nb, int d, int e, K (&ok)[E], uint32_t (&ov)[E]) {
+  int ai = co_rank_padded(sk, a0, na, b0, nb, d);
+  int bi = d - ai;
+  K ka = sk[spad<K>(a0 + ai)];
+  K kb = sk[spad<K>(b0 + bi)];
+  uint32_t va = 0, vb = 0;
+  if (kValues) {
+    va = sv[spad<uint32_t>(a0 + ai)];
+    vb = sv[spad<uint32_t>(b0 + bi)];
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (j < e) {
+      const bool take_a = ai < na && (bi >= nb || key_le(ka, kb));
+      ok[j] = take_a ? ka : kb;
+      if (kValues) ov[j] = take_a ? va : vb;
+      // one read: the next element of the side taken
+      const int next = take_a ? a0 + ai + 1 : b0 + bi + 1;
+      ai += take_a;
+      bi += !take_a;
+      const K kn = sk[spad<K>(next)];
+      ka = take_a ? kn : ka;
+      kb = take_a ? kb : kn;
+      if (kValues) {
+        const uint32_t vn = sv[spad<uint32_t>(next)];
+        va = take_a ? vn : va;
+        vb = take_a ? vb : vn;
+      }
+    }
+  }
+}
+
+// 16 bytes of T, as one vector access.
+template <typename T>
+union Vec16 {
+  int4 q;
+  T x[16 / sizeof(T)];
+};
+
+// Copy g[gs : gs + cnt] into the padded buffer s at dst .. dst + cnt - 1,
+// by the whole block: 16-byte loads of the window's cover by 16-byte-aligned
+// addresses, the elements outside the window dropped by index.  A vector
+// that would reach outside g[0 : n_total] is read element by element, so g
+// need only be aligned to its element.
+template <typename T>
+__device__ __forceinline__ void stage_window(T* s, int dst, const T* __restrict__ g, int64_t gs, int cnt,
+                                             int64_t n_total) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(g + gs) & 15) / sizeof(T));
+  const int64_t c0 = gs - lead;
+  const int nvec = (lead + cnt + kVec - 1) / kVec;
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const int64_t gi = c0 + static_cast<int64_t>(v) * kVec;
+    Vec16<T> x;
+    if (gi >= 0 && gi + kVec <= n_total) {
+      x.q = __ldg(reinterpret_cast<const int4*>(g + gi));
+    } else {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) x.x[c] = gi + c >= 0 && gi + c < n_total ? g[gi + c] : T{};
+    }
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      const int li = v * kVec + c - lead;
+      if (li >= 0 && li < cnt) s[spad<T>(dst + li)] = x.x[c];
+    }
+  }
+}
+
+// Store the padded buffer's first n elements to g[0 : n] (g 16-byte
+// aligned) with 16-byte stores by the whole block.
+template <typename T>
+__device__ __forceinline__ void store_span(T* __restrict__ g, const T* s, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int nvec = n / kVec;
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    Vec16<T> x;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) x.x[c] = s[spad<T>(v * kVec + c)];
+    *reinterpret_cast<int4*>(g + static_cast<int64_t>(v) * kVec) = x.q;
+  }
+  for (int i = nvec * kVec + threadIdx.x; i < n; i += blockDim.x) g[i] = s[spad<T>(i)];
+}
+
+// Write a thread's e outputs to the padded buffer at j0 .. j0 + e - 1.
+template <typename T, int E>
+__device__ __forceinline__ void put_segment(T* s, int j0, int e, const T (&r)[E]) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if (j < e) s[spad<T>(j0 + j)] = r[j];
+  }
+}
+
+}  // namespace repro

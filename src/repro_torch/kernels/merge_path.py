@@ -9,6 +9,9 @@ The counterparts of the reference's Pallas entry points
 * :func:`sort_round` (K3, ``sort_round_pallas``) and :func:`sort_round_kv`
   (K4, ``sort_round_kv_pallas``): one flat merge-sort round,
   ``csrc/sort_round.cu`` and ``csrc/sort_round_kv.cu``;
+* :func:`sort_tiles` and :func:`sort_tiles_kv` (S1, no Pallas counterpart:
+  the reference runs the same narrow rounds in XLA): every chunk of a flat
+  buffer sorted stably in one launch, ``csrc/sort_tiles.cu``;
 * :func:`merge_batched` (K5, ``merge_batched_pallas``),
   :func:`merge_kv_batched` (K6, ``merge_kv_batched_pallas``),
   :func:`merge_batched_ragged` (K7, ``merge_batched_ragged_pallas``) and
@@ -16,7 +19,8 @@ The counterparts of the reference's Pallas entry points
   ``B`` independent row merges, the ragged ones with per-row valid
   lengths, ``csrc/merge.cu``.
 
-All of them share the tile body of ``csrc/merge_tile.cuh``.  A sort keeps one
+K1, K2 and K4-K8 share the tile body of ``csrc/merge_tile.cuh``; K3 and S1
+share the per-thread segment merge of ``csrc/segment_merge.cuh``.  A sort keeps one
 flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
 ``width``, then ``tile`` sentinel keys (with zero values).  One round
 merges each pair of runs into a run of ``2 * width`` and returns the same
@@ -56,6 +60,8 @@ _ARGTYPES = {
     "merge_kv": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I, _I, _P],
     "sort_round": [_P, _P, _I, _I, _I, _I, _P],
     "sort_round_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sort_tiles": [_P, _P, _I64, _I, _P],
+    "sort_tiles_kv": [_P, _P, _P, _P, _I64, _I, _P],
     "merge_batched": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I, _I, _P],
     "merge_kv_batched": [_P, _P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _P],
     "merge_batched_ragged": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _P],
@@ -207,8 +213,9 @@ merge_kv.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_round(what: str, kf: torch.Tensor, width: int, tile: int, vf: Optional[torch.Tensor] = None) -> int:
-    """Validate one round's operands; returns ``m``, the data length."""
+def _check_flat(what: str, kf: torch.Tensor, vf: Optional[torch.Tensor]) -> None:
+    """Checks of a flat sort buffer: 1-D int16 or int32 keys, and int32
+    values of the same shape where there are values, contiguous."""
     if kf.dtype not in KEY_DTYPES:
         raise TypeError(f"{what}: keys must be int16 or int32, got {kf.dtype}")
     if kf.ndim != 1:
@@ -222,6 +229,11 @@ def _check_round(what: str, kf: torch.Tensor, width: int, tile: int, vf: Optiona
             raise ValueError(f"{what}: keys on {kf.device}, values on {vf.device}")
     if not (kf.is_contiguous() and (vf is None or vf.is_contiguous())):
         raise ValueError(f"{what}: keys and values must be contiguous")
+
+
+def _check_round(what: str, kf: torch.Tensor, width: int, tile: int, vf: Optional[torch.Tensor] = None) -> int:
+    """Validate one round's operands; returns ``m``, the data length."""
+    _check_flat(what, kf, vf)
     if not (_is_pow2(width) and _is_pow2(tile)) or (2 * width) % tile or tile > MAX_TILE:
         raise ValueError(
             f"{what}: need power-of-two width and tile <= {MAX_TILE} with tile | 2*width, got width={width} tile={tile}"
@@ -250,8 +262,10 @@ def sort_round(xf: torch.Tensor, width: int, *, tile: int = DEFAULT_TILE, leaf: 
     ``xf`` (int16 or int32) is ``(m + tile,)``: runs of ``width`` sorted
     keys, then ``tile`` sentinels.  ``width`` and ``tile`` are powers of
     two with ``tile | 2 * width``, and ``m`` is a multiple of ``2 * width``.
-    ``leaf`` is the kernel's level-2 leaf width; the result does not depend
-    on it.  Returns new keys holding runs of ``2 * width``.
+    ``leaf`` is the reference's level-2 leaf width, kept for parity with
+    ``sort_round_pallas``: the kernel merges a segment per thread, has no
+    leaves and ignores it (the result does not depend on it).  Returns new
+    keys holding runs of ``2 * width``.
 
     A CUDA tensor launches the kernel (and counts one in
     ``sort_round.launches``); a CPU tensor takes :func:`sort_round_ref`.
@@ -316,6 +330,102 @@ def sort_round_kv(
 
 
 sort_round_kv.launches = 0
+
+# ---------------------------------------------------------------------------
+# S1: the tile sort, every narrow round of a flat sort in one launch
+# ---------------------------------------------------------------------------
+
+
+def _check_tiles(what: str, kf: torch.Tensor, chunk: int, vf: Optional[torch.Tensor] = None) -> None:
+    _check_flat(what, kf, vf)
+    if not (_is_pow2(chunk) and 2 <= chunk <= MAX_TILE):
+        raise ValueError(f"{what}: chunk must be a power of two in [2, {MAX_TILE}], got {chunk}")
+    if kf.shape[0] % chunk:
+        raise ValueError(f"{what}: length {kf.shape[0]} is not a multiple of the chunk {chunk}")
+
+
+def narrow_rounds(xf: torch.Tensor, width: int, chunk: int) -> torch.Tensor:
+    """The flat sort's narrow rounds from runs of ``width`` up to runs of
+    ``chunk``: per round, one batched rank merge
+    (:func:`repro_torch.core.merge_batched`) of every pair of runs, as the
+    reference runs them in XLA."""
+    while width < chunk:
+        runs = xf.reshape(-1, 2, width)
+        xf = _bat.merge_batched(runs[:, 0], runs[:, 1]).reshape(-1)
+        width *= 2
+    return xf
+
+
+def narrow_rounds_kv(kf: torch.Tensor, vf: torch.Tensor, width: int, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Key-value :func:`narrow_rounds` (:func:`repro_torch.core.merge_kv_batched`)."""
+    while width < chunk:
+        kr = kf.reshape(-1, 2, width)
+        vr = vf.reshape(-1, 2, width)
+        kf, vf = _bat.merge_kv_batched(kr[:, 0], vr[:, 0], kr[:, 1], vr[:, 1])
+        kf, vf = kf.reshape(-1), vf.reshape(-1)
+        width *= 2
+    return kf, vf
+
+
+def sort_tiles_ref(xf: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Plain version of S1: the narrow rounds, widths 1 to ``chunk / 2``."""
+    _check_tiles("sort_tiles", xf, chunk)
+    return narrow_rounds(xf, 1, chunk)
+
+
+def sort_tiles(xf: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Sort each consecutive chunk of ``chunk`` keys of a flat buffer (S1).
+
+    ``xf`` is ``(n,)`` int16 or int32, contiguous, ``n`` a multiple of
+    ``chunk``, a power of two in ``[2, MAX_TILE]``.  The sort is stable, so
+    the result is exactly that of the flat sort's narrow rounds from width
+    1 to ``chunk / 2`` (:func:`sort_tiles_ref`).
+
+    A CUDA tensor launches the kernel (and counts one in
+    ``sort_tiles.launches``; an empty buffer launches nothing); a CPU
+    tensor takes :func:`sort_tiles_ref`.
+    """
+    _check_tiles("sort_tiles", xf, chunk)
+    if not _on_card("sort_tiles", xf):
+        return sort_tiles_ref(xf, chunk)
+    out = torch.empty_like(xf)
+    if out.numel():
+        _launch("sort_tiles", "sort_tiles", "sort_tiles", xf.dtype, xf.device,
+                xf.data_ptr(), out.data_ptr(), xf.shape[0], chunk)
+        sort_tiles.launches += 1
+    return out
+
+
+sort_tiles.launches = 0
+
+
+def sort_tiles_kv_ref(kf: torch.Tensor, vf: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the key-value S1: the narrow key-value rounds."""
+    _check_tiles("sort_tiles_kv", kf, chunk, vf)
+    return narrow_rounds_kv(kf, vf, 1, chunk)
+
+
+def sort_tiles_kv(kf: torch.Tensor, vf: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable key-value sort of each chunk of ``chunk`` keys (S1 with values).
+
+    Keys as in :func:`sort_tiles`, int32 values of the same shape; equal
+    keys keep their input order.  A CUDA tensor launches the kernel
+    (counted in ``sort_tiles_kv.launches``); a CPU tensor takes
+    :func:`sort_tiles_kv_ref`.
+    """
+    _check_tiles("sort_tiles_kv", kf, chunk, vf)
+    if not _on_card("sort_tiles_kv", kf):
+        return sort_tiles_kv_ref(kf, vf, chunk)
+    ko = torch.empty_like(kf)
+    vo = torch.empty_like(vf)
+    if ko.numel():
+        _launch("sort_tiles_kv", "sort_tiles", "sort_tiles_kv", kf.dtype, kf.device,
+                kf.data_ptr(), vf.data_ptr(), ko.data_ptr(), vo.data_ptr(), kf.shape[0], chunk)
+        sort_tiles_kv.launches += 1
+    return ko, vo
+
+
+sort_tiles_kv.launches = 0
 
 # ---------------------------------------------------------------------------
 # K5 - K8: B row merges, ragged or not
@@ -526,7 +636,7 @@ def merge_kv_batched_ragged(
 merge_kv_batched_ragged.launches = 0
 
 WRAPPERS = (merge, merge_kv, sort_round, sort_round_kv, merge_batched, merge_kv_batched,
-            merge_batched_ragged, merge_kv_batched_ragged)
+            merge_batched_ragged, merge_kv_batched_ragged, sort_tiles, sort_tiles_kv)
 
 
 def reset_launches() -> None:

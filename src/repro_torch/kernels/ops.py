@@ -14,11 +14,12 @@ dispatch:
   odd rows in place;
 * :func:`sort`, :func:`sort_kv`, :func:`sort_batched`,
   :func:`sort_kv_batched` and :func:`topk_batched`: bottom-up merge-sort
-  rounds over a flat buffer of power-of-two rows.  Narrow rounds
-  (``2 * width <= tile``) are plain batched merges on reshaped views
-  (:func:`repro_torch.core.merge_batched` / ``merge_kv_batched``); wide
-  rounds are launches of K3 (keys only) or K4 (key-value), which share
-  one sentinel tail appended once per sort, not once per round.  Integer
+  rounds over a flat buffer of power-of-two rows.  The narrow rounds
+  (``2 * width <= tile``) are one launch of the tile sort S1, which sorts
+  each chunk of ``min(m, tile)`` keys stably (the same result: a stable
+  sort has one output); wide rounds are launches of K3 (keys only) or K4
+  (key-value), which share one sentinel tail appended once per sort, not
+  once per round.  Integer
   keys-only sorts run K3; float keys compare their int
   :func:`~repro_torch.core.total_order_keys` (NaN last) through K4 with
   an index payload, and the result is gathered through that permutation;
@@ -251,15 +252,27 @@ def merge_k(
 # ---------------------------------------------------------------------------
 
 
+def _narrow_chunk(m: int, tile: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(chunk, width)``: S1 sorts chunks of ``chunk`` keys, and the core
+    merges take the narrow rounds from there up to runs of ``width =
+    min(m, tile)``: the rounds past ``MAX_TILE`` (an explicit tile past
+    it), and all of them for keys S1 does not take (it takes the wide
+    rounds' int16 and int32)."""
+    width = min(m, tile)
+    if dtype not in _kern.KEY_DTYPES:
+        return 1, width
+    return min(width, _kern.MAX_TILE), width
+
+
 def _sort_rounds(flat: torch.Tensor, m: int, tile: int, leaf: int) -> torch.Tensor:
-    """Bottom-up keys-only merge-sort rounds over a flat ``(B * m,)`` buffer
-    of width-1 runs (``m`` = per-row power-of-two width, so no pair
-    straddles two rows)."""
-    width = 1
-    while width < m and 2 * width <= tile:
-        runs = flat.reshape(-1, 2, width)
-        flat = _bat.merge_batched(runs[:, 0], runs[:, 1]).reshape(-1)
-        width *= 2
+    """Bottom-up keys-only merge sort over a flat ``(B * m,)`` buffer of
+    width-1 runs (``m`` = per-row power-of-two width, so no pair straddles
+    two rows): one tile sort (S1) of the narrow rounds, then the wide
+    rounds."""
+    chunk, width = _narrow_chunk(m, tile, flat.dtype)
+    if chunk > 1:
+        flat = _kern.sort_tiles(flat, chunk)
+    flat = _kern.narrow_rounds(flat, chunk, width)
     if width < m:
         total = flat.shape[0]
         xf = torch.cat([flat, torch.full((tile,), _mp.max_sentinel(flat.dtype), dtype=flat.dtype, device=flat.device)])
@@ -274,13 +287,10 @@ def _sort_rounds_kv(
     kflat: torch.Tensor, vflat: torch.Tensor, m: int, tile: int, leaf: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Key-value :func:`_sort_rounds` (the values' tail is zeros)."""
-    width = 1
-    while width < m and 2 * width <= tile:
-        kr = kflat.reshape(-1, 2, width)
-        vr = vflat.reshape(-1, 2, width)
-        kflat, vflat = _bat.merge_kv_batched(kr[:, 0], vr[:, 0], kr[:, 1], vr[:, 1])
-        kflat, vflat = kflat.reshape(-1), vflat.reshape(-1)
-        width *= 2
+    chunk, width = _narrow_chunk(m, tile, kflat.dtype)
+    if chunk > 1:
+        kflat, vflat = _kern.sort_tiles_kv(kflat, vflat, chunk)
+    kflat, vflat = _kern.narrow_rounds_kv(kflat, vflat, chunk, width)
     if width < m:
         total = kflat.shape[0]
         tail_k = torch.full((tile,), _mp.max_sentinel(kflat.dtype), dtype=kflat.dtype, device=kflat.device)

@@ -167,7 +167,7 @@ def test_chip_phase_runs_on_the_cpu():
     spec.loader.exec_module(smoke)
     km.reset_launches()
     out = smoke.phase_merge_sort(device="cpu", log2n=10, batch=(4, 2048), tile=TILE, leaf=LEAF)
-    assert set(out) == {"merge", "merge_kv", "sort_round"}
+    assert set(out) == {"merge", "merge_kv", "sort_round", "sort_tiles", "sort_tiles_kv"}
     for entry in out.values():
         assert entry["max_abs_err"] == 0 and entry["launches"] == 0
     assert all(fn.launches == 0 for fn in km.WRAPPERS)
