@@ -17,11 +17,14 @@ Phases (any failure raises, and the script exits non-zero):
    port never calls); S1 with values on one sampled row's keys;
 4. merge and sort at 2 x 2^24 elements (:func:`phase_merge_sort`): K1, K2,
    K3 and the tile sort S1 (keys alone and with values) against their plain
-   versions, bit for bit, over adversarial input families; the whole path
+   versions, bit for bit, over adversarial input families, K1 and K2 also
+   at the edges of their block span (views off a 16-byte boundary,
+   lopsided lengths, disjoint ranges, totals around one span); the whole path
    (``ops.merge``, ``ops.merge_kv``, ``ops.sort``, ``ops.sort_batched``)
    driven once with the launch counts read; CUDA-event times of each
-   kernel, its plain version and one PyTorch call; ``ops.sort`` beside one
-   stable ``torch.sort`` and split into S1, K3's rounds and the rest;
+   kernel, its plain version and one PyTorch call, and of K1 for each key
+   dtype; ``ops.sort`` beside one stable ``torch.sort`` and split into S1,
+   K3's rounds and the rest;
 5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
    K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
    (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
@@ -347,9 +350,10 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     """K1, K2, K3 and the tile sort S1 on the merge-and-sort path at
     ``2 x 2^log2n`` elements.
 
-    Every merge, every round and every tile sort (keys alone and with
-    values, over ``TILE_KINDS`` and ``TILE_CHUNKS``) is held against the
-    kernel's plain version bit for bit, the whole path is driven once
+    Every merge (K1 and K2 also at the edges of their block span), every
+    round and every tile sort (keys alone and with values, over
+    ``TILE_KINDS`` and ``TILE_CHUNKS``) is held against the kernel's plain
+    version bit for bit, the whole path is driven once
     through ``kernels.ops`` with the launch counts set to 0 just before it,
     and on the card each kernel is timed beside its plain version, its
     bound and one PyTorch call, and ``ops.sort`` is split into its tile
@@ -379,9 +383,35 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         check(fn.launches - before == want, f"{fn.__name__}: {fn.launches - before} launches, want {want}")
         return out
 
+    def merge_case(a, b, what):
+        """K1 through ``ops.merge`` (one launch past the tile) against its plain version."""
+        got = launched(km.merge, lambda: ops.merge(a, b, tile=tile, leaf=leaf), int(a.shape[0] + b.shape[0] > tile))
+        errs["merge"] = max(errs["merge"], bit_err(got, km.merge_ref(a, b), what))
+        cases["merge"] += 1
+
+    def kv_case(ak, bk, what, offs=(0, 0)):
+        """K2 through ``ops.merge_kv`` on arange values, so that every value
+        names its source slot (float keys take float32 values of the same
+        bits: floats past 2^24 would not be distinct); the values are views
+        that start ``offs`` elements into their buffer, as the keys may."""
+        na, nb = ak.shape[0], bk.shape[0]
+        vals = torch.arange(offs[0] + na + offs[1] + nb, dtype=torch.int32, device=device)
+        src = vals.view(torch.float32) if ak.dtype.is_floating_point else vals
+        av, bv = src[offs[0]:offs[0] + na], src[offs[0] + na + offs[1]:]
+        ko, vo = launched(km.merge_kv, lambda: ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf), int(na + nb > tile))
+        wk, wv = km.merge_kv_ref(ak, av, bk, bv)
+        errs["merge_kv"] = max(errs["merge_kv"], bit_err(ko, wk, what + " keys"), bit_err(vo, wv, what + " values"))
+        # sorted, stable and a permutation, whatever the plain version says
+        vo = vo.view(torch.int32)
+        check(bool((ko[1:] >= ko[:-1]).all()), f"{what}: keys not sorted")
+        check(bool((vo[1:] > vo[:-1])[ko[1:] == ko[:-1]].all()), f"{what}: equal keys out of source order")
+        check(torch.equal(torch.sort(vo).values, torch.cat([av, bv]).view(torch.int32)),
+              f"{what}: values are not a permutation of the inputs")
+        cases["merge_kv"] += 1
+
     # K1: every family of every key dtype, then the edge shapes
     merge_cases = []
-    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int16):
         kinds = ["random", "dups", "all_equal", "sentinel"] + (["signed_zeros"] if dtype.is_floating_point else [])
         merge_cases += [(dtype, kind, n1, n1) for kind in kinds]
     merge_cases += [
@@ -392,31 +422,44 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     ]
     for dtype, kind, na, nb in merge_cases:
         a, b = sorted_side(kind, na, dtype, gen, device), sorted_side(kind, nb, dtype, gen, device)
-        got = launched(km.merge, lambda: ops.merge(a, b, tile=tile, leaf=leaf), int(na + nb > tile))
-        what = f"merge {dtype} {kind} ({na}, {nb})"
-        errs["merge"] = max(errs["merge"], bit_err(got, km.merge_ref(a, b), what))
-        cases["merge"] += 1
+        merge_case(a, b, f"merge {dtype} {kind} ({na}, {nb})")
 
-    # K2: arange values, so that every value names its source slot (float32
-    # values carry the same bits: floats past 2^24 would not be distinct)
+    # K2: int32 and float32 keys over the families, then the edge shapes
     kv_cases = [(torch.int32, kind, n1, n1) for kind in ("random", "dups", "all_equal", "sentinel")]
     kv_cases += [(torch.float32, "signed_zeros", n1, n1), (torch.int32, "random", n1 + n1 // 2 - 1, n1),
                  (torch.int32, "dups", 0, n1), (torch.int32, "random", tile // 4, tile // 2)]
     for dtype, kind, na, nb in kv_cases:
         ak, bk = sorted_side(kind, na, dtype, gen, device), sorted_side(kind, nb, dtype, gen, device)
-        vals = torch.arange(na + nb, dtype=torch.int32, device=device)
-        src = vals.view(torch.float32) if dtype.is_floating_point else vals
-        av, bv = src[:na], src[na:]
-        ko, vo = launched(km.merge_kv, lambda: ops.merge_kv(ak, av, bk, bv, tile=tile, leaf=leaf), int(na + nb > tile))
-        wk, wv = km.merge_kv_ref(ak, av, bk, bv)
-        what = f"merge_kv {dtype} {kind} ({na}, {nb})"
-        errs["merge_kv"] = max(errs["merge_kv"], bit_err(ko, wk, what + " keys"), bit_err(vo, wv, what + " values"))
-        # sorted, stable and a permutation, whatever the plain version says
-        vo = vo.view(torch.int32)
-        check(bool((ko[1:] >= ko[:-1]).all()), f"{what}: keys not sorted")
-        check(bool((vo[1:] > vo[:-1])[ko[1:] == ko[:-1]].all()), f"{what}: equal keys out of source order")
-        check(torch.equal(torch.sort(vo).values, vals), f"{what}: values are not a permutation of the inputs")
-        cases["merge_kv"] += 1
+        kv_case(ak, bk, f"merge_kv {dtype} {kind} ({na}, {nb})")
+
+    # K1 and K2 at the edges of the span merge (a block writes MERGE_SPAN or
+    # MERGE_KV_SPAN outputs and reads exactly its two windows): inputs that
+    # start off a 16-byte boundary, so that each window's cover is trimmed at
+    # both ends; lopsided lengths; disjoint ranges, so that some blocks have
+    # an empty window on one side; totals around one span and one between
+    # the tile and the span (a single block)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int16):
+        kind = "signed_zeros" if dtype.is_floating_point else "sentinel"
+        a, b = sorted_side("dups", n1 + 1, dtype, gen, device)[1:], sorted_side(kind, n1 + 3, dtype, gen, device)[3:]
+        merge_case(a, b, f"merge {dtype} views at offsets (1, 3)")
+        kv_case(a, b, f"merge_kv {dtype} views at offsets (1, 3)", offs=(1, 3))
+
+    def edges(span):
+        return {"lopsided (1, n)": (1, n1), "lopsided (n, 1)": (n1, 1),
+                "total span - 1": (span // 2, span // 2 - 1), "total span": (span // 2, span // 2),
+                "total span + 1": (span // 2 + 1, span // 2),
+                "total between tile and span": ((tile + span) // 6, (tile + span) // 3)}
+
+    for what, (na, nb) in edges(km.MERGE_SPAN).items():
+        a, b = sorted_side("dups", na, torch.float32, gen, device), sorted_side("dups", nb, torch.float32, gen, device)
+        merge_case(a, b, f"merge {what} ({na}, {nb})")
+    for what, (na, nb) in edges(km.MERGE_KV_SPAN).items():
+        ak, bk = sorted_side("random", na, torch.int32, gen, device), sorted_side("random", nb, torch.int32, gen, device)
+        kv_case(ak, bk, f"merge_kv {what} ({na}, {nb})")
+    low_high = sorted_side("random", 2 * n1, torch.int32, gen, device)
+    for what, (a, b) in (("A below B", (low_high[:n1], low_high[n1:])), ("A above B", (low_high[n1:], low_high[:n1]))):
+        merge_case(a, b, f"merge disjoint, {what}")
+        kv_case(a, b, f"merge_kv disjoint, {what}")
 
     # K3: every wide round of a 2^log2n sort, then whole sorts
     def round_keys(keys, width):
@@ -487,7 +530,8 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         cases["sort_tiles"] += 1
         cases["sort_tiles_kv"] += 1
 
-    # the result must not depend on (T, S): other tiles and leaves, odd lengths
+    # the result must not depend on (T, S), which K1 and K2 ignore and the
+    # rounds take: other tiles and leaves, odd lengths
     for t, s in ((32, 1), (128, 8), (384, 24), (1000, 32), (4096, 64)):
         for dtype in (torch.int16, torch.bfloat16, torch.float32):
             kind = "signed_zeros" if dtype.is_floating_point else "sentinel"
@@ -556,6 +600,17 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         r = out[name]
         print(f"  {name:8s} 2 x 2^{log2n}: kernel_ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
               f"library_ms {r['library_ms']:.5f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    # K1 for each key dtype, and K2 on float32 keys, beside their byte bounds
+    by_dtype = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int16):
+        x, y = (sorted_side("random", n1, dtype, gen, device) for _ in range(2))
+        size = x.element_size()
+        by_dtype.append(f"K1 {str(dtype)[6:]} {time_ms(lambda: km.merge(x, y, tile=tile, leaf=leaf)):.5f} "
+                        f"(bound {merge_bound(2 * n1, size)['ms']:.6f})")
+    fk, gk = (sorted_side("random", n1, torch.float32, gen, device) for _ in range(2))
+    by_dtype.append(f"K2 float32 keys, int32 values {time_ms(lambda: km.merge_kv(fk, av, gk, bv, tile=tile, leaf=leaf)):.5f} "
+                    f"(bound {merge_bound(2 * n1, 8)['ms']:.6f})")
+    print(f"  K1/K2 2 x 2^{log2n} by key dtype, ms: " + ", ".join(by_dtype))
     rounds = []
     for w in widths:
         xf = round_keys(keys, w)
@@ -1707,6 +1762,29 @@ def sort_registers(built: dict) -> str:
     return "sort kernels (ptxas -v): " + ("; ".join(parts) if parts else "built before this run, so no ptxas log")
 
 
+def merge_registers(built: dict) -> str:
+    """K1's, K2's and K5-K8's registers a thread and spill bytes (stores and
+    loads) per key dtype, from the ``ptxas -v`` log of ``merge.cu``."""
+    import re
+
+    dtypes = {"f": "float32", "N5repro4bf16E": "bfloat16", "i": "int32", "s": "int16"}
+    key = r"I(f|i|s|N5repro4bf16E)Lb([01])E"
+    log = built["merge"].ptxas
+    rows = []
+    for kernel, used, spills in ptxas_kernels(log):
+        span, tiled = re.search("merge_span_kernel" + key, kernel), re.search("merge_rows_kernel" + key + "Lb([01])E", kernel)
+        if not (span or tiled):
+            continue
+        m = span or tiled
+        label = f"K{1 + int(m.group(2))}" if span else f"K{5 + int(m.group(2)) + 2 * int(m.group(3))}"
+        regs = re.search(r"Used (\d+) registers", used).group(1)
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
+        rows.append((label, list(dtypes).index(m.group(1)), f"{label} {dtypes[m.group(1)]} {regs} registers {spill} B spill"))
+    check(len(rows) == 24 or not log, f"{len(rows)} of the 24 K1, K2 and K5-K8 kernels in the ptxas log of merge.cu")
+    parts = [r[2] for r in sorted(rows)]
+    return "merge kernels (ptxas -v): " + ("; ".join(parts) if parts else "built before this run, so no ptxas log")
+
+
 def main() -> int:
     import torch
 
@@ -1730,6 +1808,7 @@ def main() -> int:
             print(f"  ptxas {kernel}: {used}; {spills}")
     k10_regs = k10_registers(built["ssm_scan_bwd"].ptxas)
     print(sort_registers(built))
+    print(merge_registers(built))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

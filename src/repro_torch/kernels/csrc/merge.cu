@@ -4,94 +4,150 @@
 // Replaces: src/repro/kernels/merge_path.py::_merge_kernel (launched by
 // merge_pallas) and ::_merge_kv_kernel (launched by merge_kv_pallas), with
 // the start tables of _prepare and the host-side sentinel padding of both
-// inputs; and ::_merge_batched_kernel (merge_batched_pallas, K5),
+// inputs (K1 and K2 on the per-thread segment merge of segment_merge.cuh);
+// and ::_merge_batched_kernel (merge_batched_pallas, K5),
 // ::_merge_kv_batched_kernel (merge_kv_batched_pallas, K6),
 // ::_merge_batched_ragged_kernel (merge_batched_ragged_pallas, K7) and
 // ::_merge_kv_batched_ragged_kernel (merge_kv_batched_ragged_pallas, K8),
 // with the start tables of _prepare_batched{,_ragged}, the host-side masking
-// of the ragged tails (_mask_rows) and the host-side padding of every row.
+// of the ragged tails (_mask_rows) and the host-side padding of every row
+// (K5-K8 on the tile body of merge_tile.cuh).
 //
-// K1/K2: the grid has cdiv(na + nb, T) blocks.  Block t bisects diagonal t * T
-// over (a, na, b, nb) in global memory (block_co_rank), takes the valid
-// prefixes va = min(na - a0, T) and vb = min(nb - b0, T) of its two windows,
-// and runs the tile body of merge_tile.cuh.  The last block writes n - t * T
-// outputs: the output has exactly n elements and the inputs are not padded or
-// copied on the host.
+// K1/K2 (merge_span_kernel): what bounds them is memory.  K1 reads n = na +
+// nb keys and writes n: 2 * n * sizeof(K) bytes, 0.080 ms for 2 x 2^24
+// float32 keys at 3.35 TB/s.  K2 moves the values too: 2 * n * (sizeof(K) +
+// 4) bytes, 0.160 ms for int32 keys and values.  What the design does about
+// that (the paper's Segmented Parallel Merge, as K3's wide rounds run it):
+//  * a block writes kSpan = kThreads * kE consecutive outputs (8192 for K1,
+//    4096 for K2), o0 .. o1 = min(o0 + kSpan, n): the grid has cdiv(n,
+//    kSpan) blocks and the output has exactly n elements, with no padding
+//    and no host copy;
+//  * warp 0 bisects diagonal o0 and warp 1 diagonal o1 over (a, na, b, nb)
+//    in device memory, in parallel (co_rank_warp, at most 5 dependent steps
+//    at 2^24).  Neighbouring blocks evaluate their shared diagonal with the
+//    same function over the same arrays, so the windows tile both inputs
+//    exactly and the merge stays stable across the seam;
+//  * the block reads exactly its two windows, a[a_lo : a_hi] and
+//    b[o0 - a_lo : o1 - a_hi], o1 - o0 keys in all (and their values), by
+//    16-byte loads of each window's aligned cover into padded shared
+//    memory; the extra elements are dropped by index, so the inputs may
+//    start at any element;
+//  * each thread finds its diagonal by one co-rank in shared memory and
+//    merges its kE outputs sequentially, one comparison and one shared
+//    read each (segment_merge.cuh), into registers;
+//  * the outputs go back through shared memory and out by 16-byte stores
+//    (o0 is a multiple of kSpan and the output is the wrapper's own).
+// `tile` and `leaf` are the reference's and do not change a bit of the
+// stable merge's one output, so the kernel ignores them.
 //
-// K5-K8 (merge_rows_kernel<K, kValues, kRagged>): the same body over rows.
-// The grid has B * cdiv(na + nb, T) blocks, (row, tile) linearised over
-// blockIdx.x, since gridDim.y stops at 65535.  Rows are read at strides
-// a_stride and b_stride (elements; values share their keys' stride) and
-// written at out_stride, so the k-way tournament reads the even and odd rows
-// of the previous round in place.  Row r merges la = na and lb = nb elements
-// (K5, K6), or, ragged (K7, K8), la = clamp(a_lens[r], 0, na) and lb
-// likewise.  Tile t covers diagonals d = t * T .. d + n_out with n_out =
-// min(na + nb - d, T), so the last tile of a row is short and never touches
-// the next row.  A tile past the row's total (d >= la + lb) writes n_out
-// sentinel keys and zero values and returns: no search, no staging.
-// Otherwise the start search is bounded by la and lb, so it never probes a
-// tail, whatever the tail holds; the tile body writes min(la + lb - d, T)
-// outputs and the block fills the rest of its n_out slots with the sentinel
-// (+inf for floats, the largest int) and zero values.  Pads are excluded by
-// index, never by comparison, so real keys equal to the sentinel keep their
-// values.  K1 and K2 stay a kernel of their own: as the one-row case of this
-// one they measured 5-7 % slower (PERF.md).
+// K5-K8 (merge_rows_kernel<K, kValues, kRagged>): the tile body of
+// merge_tile.cuh over rows.  The grid has B * cdiv(na + nb, T) blocks, (row,
+// tile) linearised over blockIdx.x, since gridDim.y stops at 65535.  Block t
+// of a row bisects diagonal t * T in global memory (block_co_rank), stages
+// the valid prefixes of its two T-windows, splits the tile into leaves of S
+// by Algorithm 2 and finds each output slot by a co-rank inside its leaf.
+// Rows are read at strides a_stride and b_stride (elements; values share
+// their keys' stride) and written at out_stride, so the k-way tournament
+// reads the even and odd rows of the previous round in place.  Row r merges
+// la = na and lb = nb elements (K5, K6), or, ragged (K7, K8), la =
+// clamp(a_lens[r], 0, na) and lb likewise.  Tile t covers diagonals d = t *
+// T .. d + n_out with n_out = min(na + nb - d, T), so the last tile of a row
+// is short and never touches the next row.  A tile past the row's total (d
+// >= la + lb) writes n_out sentinel keys and zero values and returns: no
+// search, no staging.  Otherwise the start search is bounded by la and lb,
+// so it never probes a tail, whatever the tail holds; the tile body writes
+// min(la + lb - d, T) outputs and the block fills the rest of its n_out
+// slots with the sentinel (+inf for floats, the largest int) and zero
+// values.  Pads are excluded by index, never by comparison, so real keys
+// equal to the sentinel keep their values.
 //
 // Keys are compared with the raw `<=` of their type (int16, int32, float32,
-// bfloat16), so -0.0 and +0.0 tie and A's comes first, as in the reference.
-// Values are 32-bit words (int32 or float32) and are only moved.  Element
-// offsets are 64-bit.
+// bfloat16; bfloat16 through float), so -0.0 and +0.0 tie and A's comes
+// first, as in the reference.  Values are 32-bit words (int32 or float32)
+// and are only moved.  Element offsets are 64-bit.
 //
-// What bounds it: memory.  K1 reads n keys and writes n: 2 * n * sizeof(K)
-// bytes, 0.080 ms for 2 x 2^24 float32 keys at 3.35 TB/s.  K2 moves the values
-// too: 2 * n * (sizeof(K) + 4) bytes, 0.160 ms for int32 keys and values.  K5
-// and K6 move the same bytes for B rows of n; K7 and K8 read only the valid
-// prefixes and write every slot: (sum_r (la + lb) + B * n) * sizeof(K) bytes
-// (K8: sizeof(K) + 4).
-//
-// What the design does about that: every input element is read from device
-// memory once, by coalesced loads into shared memory, and every output written
-// once by coalesced stores; the searches inside a tile run in shared memory.
-// The start search reads 32 probes per step in at most 5 dependent steps at
-// 2^24.  TMA staging, a separate start pass and a persistent grid are left
-// for later work.
+// What bounds K5-K8: memory.  K5 and K6 move K1's and K2's bytes for B rows
+// of n; K7 and K8 read only the valid prefixes and write every slot: (sum_r
+// (la + lb) + B * n) * sizeof(K) bytes (K8: sizeof(K) + 4).  Every input
+// element is read from device memory once, by coalesced loads into shared
+// memory, and every output written once by coalesced stores; the searches
+// inside a tile run in shared memory.
 
-#include "merge_tile.cuh"
+#include "segment_merge.cuh"
 
 namespace {
 
-// K1/K2: one tile per block; see the note at the top.
+// Block shapes, from a sweep of 128, 256 and 512 threads by 8 and 16 outputs
+// a thread at 2 x 2^24 on an H100 (PERF.md): K1 is fastest at 512 x 16; K2,
+// whose values take 48 registers a thread (57 at 512 threads), at 256 x 16.
+constexpr int kE = 16;  // outputs per thread
+template <bool kValues>
+constexpr int kThreads = kValues ? 256 : 512;
+// Outputs per block: kernels/merge_path.py's MERGE_SPAN (K1) and MERGE_KV_SPAN (K2).
+template <bool kValues>
+constexpr int kSpan = kThreads<kValues> * kE;
+
+// K1/K2: kSpan outputs per block; see the note at the top.
 template <typename K, bool kValues>
-__global__ void merge_kernel(const K* __restrict__ a, const uint32_t* __restrict__ av, int64_t na,
-                             const K* __restrict__ b, const uint32_t* __restrict__ bv, int64_t nb,
-                             K* __restrict__ ok, uint32_t* __restrict__ ov, int tile, int leaf) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int64_t d = static_cast<int64_t>(blockIdx.x) * tile;
-  const int64_t a0 = repro::block_co_rank(a, na, b, nb, d);
-  const int64_t b0 = d - a0;
-  const int64_t t = tile;
-  const int va = static_cast<int>(na - a0 < t ? na - a0 : t);
-  const int vb = static_cast<int>(nb - b0 < t ? nb - b0 : t);
-  const int n_out = static_cast<int>(na + nb - d < t ? na + nb - d : t);
-  repro::merge_tile<K, kValues>(a + a0, kValues ? av + a0 : nullptr, va, b + b0,
-                                kValues ? bv + b0 : nullptr, vb, ok + d, kValues ? ov + d : nullptr,
-                                n_out, tile, leaf, smem);
+__global__ void __launch_bounds__(kThreads<kValues>)
+    merge_span_kernel(const K* __restrict__ a, const uint32_t* __restrict__ av, int64_t na,
+                      const K* __restrict__ b, const uint32_t* __restrict__ bv, int64_t nb,
+                      K* __restrict__ ok, uint32_t* __restrict__ ov) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kSpanK = kSpan<kValues>;
+  constexpr int kSlotsK = repro::spad_slots<K>(kSpanK + 1);
+  K* const sk = reinterpret_cast<K*>(smem_raw);
+  uint32_t* const sv = reinterpret_cast<uint32_t*>(sk + kSlotsK);
+  __shared__ int64_t win[2];
+
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x) * kSpanK;
+  const int n = static_cast<int>(na + nb - o0 < kSpanK ? na + nb - o0 : kSpanK);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {  // the block's first and last diagonal, in parallel
+    const int64_t r = repro::co_rank_warp(a, na, b, nb, o0 + warp * n);
+    if ((threadIdx.x & 31) == 0) win[warp] = r;
+  }
+  __syncthreads();
+  const int64_t a_lo = win[0];
+  const int wa = static_cast<int>(win[1] - a_lo);
+  repro::stage_window(sk, 0, a, a_lo, wa, na);
+  repro::stage_window(sk, wa, b, o0 - a_lo, n - wa, nb);
+  if (kValues) {
+    repro::stage_window(sv, 0, av, a_lo, wa, na);
+    repro::stage_window(sv, wa, bv, o0 - a_lo, n - wa, nb);
+  }
+  __syncthreads();
+
+  const int j0 = threadIdx.x * kE;
+  const int e = n - j0 < kE ? n - j0 : kE;
+  K out[kE];
+  uint32_t vout[kE];
+  if (e > 0) repro::merge_segment<K, kValues, kE>(sk, sv, 0, wa, wa, n - wa, j0, e, out, vout);
+  __syncthreads();  // every thread's reads of the windows are done
+  if (e > 0) {
+    repro::put_segment(sk, j0, e, out);
+    if (kValues) repro::put_segment(sv, j0, e, vout);
+  }
+  __syncthreads();
+  repro::store_span(ok + o0, sk, n);
+  if (kValues) repro::store_span(ov + o0, sv, n);
 }
 
 template <typename K, bool kValues>
 int launch(const void* a, const void* av, int64_t na, const void* b, const void* bv, int64_t nb,
-           void* ok, void* ov, int tile, int leaf, void* stream) {
+           void* ok, void* ov, void* stream) {
   const int64_t n = na + nb;
   if (n == 0) return 0;
-  const size_t smem = repro::merge_tile_smem<K, kValues>(tile, leaf);
-  const cudaError_t err = repro::allow_smem(merge_kernel<K, kValues>, smem);
+  constexpr int kSpanK = kSpan<kValues>;
+  constexpr size_t kSmem = repro::spad_slots<K>(kSpanK + 1) * sizeof(K) +
+                           (kValues ? repro::spad_slots<uint32_t>(kSpanK + 1) * sizeof(uint32_t) : 0);
+  const cudaError_t err = repro::allow_smem(merge_span_kernel<K, kValues>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((n + tile - 1) / tile);
-  merge_kernel<K, kValues><<<grid, repro::block_threads(tile), smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  const int64_t grid = (n + kSpanK - 1) / kSpanK;
+  merge_span_kernel<K, kValues><<<static_cast<unsigned>(grid), kThreads<kValues>, kSmem,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const K*>(a), static_cast<const uint32_t*>(av), na, static_cast<const K*>(b),
-      static_cast<const uint32_t*>(bv), nb, static_cast<K*>(ok), static_cast<uint32_t*>(ov), tile,
-      leaf);
+      static_cast<const uint32_t*>(bv), nb, static_cast<K*>(ok), static_cast<uint32_t*>(ov));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,12 +223,16 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
 #define REPRO_MERGE_SYMBOLS(SUFFIX, K)                                                            \
   int merge_##SUFFIX(const void* a, int64_t na, const void* b, int64_t nb, void* out, int tile,  \
                      int leaf, void* stream) {                                                    \
-    return launch<K, false>(a, nullptr, na, b, nullptr, nb, out, nullptr, tile, leaf, stream);    \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch<K, false>(a, nullptr, na, b, nullptr, nb, out, nullptr, stream);                \
   }                                                                                               \
   int merge_kv_##SUFFIX(const void* ak, const void* av, int64_t na, const void* bk,               \
                         const void* bv, int64_t nb, void* ok, void* ov, int tile, int leaf,       \
                         void* stream) {                                                           \
-    return launch<K, true>(ak, av, na, bk, bv, nb, ok, ov, tile, leaf, stream);                   \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch<K, true>(ak, av, na, bk, bv, nb, ok, ov, stream);                               \
   }                                                                                               \
   int merge_batched_##SUFFIX(const void* a, int64_t na, int64_t a_stride, const void* b,         \
                              int64_t nb, int64_t b_stride, void* out, int64_t out_stride,        \

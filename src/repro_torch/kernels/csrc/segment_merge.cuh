@@ -1,7 +1,9 @@
 // The paper's per-thread segment merge in shared memory, for Hopper (sm_90a).
 //
-// Shared by K3's wide sort round (sort_round.cu) and the tile sort S1
-// (sort_tiles.cu).  Each thread owns E consecutive outputs of a merge: it
+// Shared by the 1-D merges K1 and K2 (merge.cu), K3's wide sort round
+// (sort_round.cu) and the tile sort S1 (sort_tiles.cu), over keys of 2 or 4
+// bytes (int16, int32, float32, bfloat16: key_le of merge_tile.cuh) and
+// 32-bit values.  Each thread owns E consecutive outputs of a merge: it
 // finds its diagonal with one co-rank (Algorithm 2) over the two sorted
 // inputs in shared memory, then merges its E outputs sequentially into
 // registers with one comparison and one shared-memory read each (the

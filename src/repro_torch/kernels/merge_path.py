@@ -19,8 +19,9 @@ The counterparts of the reference's Pallas entry points
   ``B`` independent row merges, the ragged ones with per-row valid
   lengths, ``csrc/merge.cu``.
 
-K1, K2 and K4-K8 share the tile body of ``csrc/merge_tile.cuh``; K3 and S1
-share the per-thread segment merge of ``csrc/segment_merge.cuh``.  A sort keeps one
+K1, K2, K3 and S1 share the per-thread segment merge of
+``csrc/segment_merge.cuh``; K4-K8 share the tile body of
+``csrc/merge_tile.cuh``.  A sort keeps one
 flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
 ``width``, then ``tile`` sentinel keys (with zero values).  One round
 merges each pair of runs into a run of ``2 * width`` and returns the same
@@ -48,7 +49,11 @@ from .ref import sort_kv_ref, sort_ref
 
 DEFAULT_TILE = 512
 DEFAULT_LEAF = 32
-MAX_TILE = 4096  # K2's windows at 4-byte keys: 64 KB of shared memory
+MAX_TILE = 4096  # K6's windows at 4-byte keys: 64 KB of shared memory
+# Outputs per block of K1 and of K2, whatever the tile: kSpan<false> and
+# kSpan<true> in csrc/merge.cu, which must agree.
+MERGE_SPAN = 8192
+MERGE_KV_SPAN = 4096
 KEY_DTYPES = (torch.int16, torch.int32)
 MERGE_KEY_DTYPES = (torch.int16, torch.int32, torch.float32, torch.bfloat16)
 MERGE_VALUE_DTYPES = (torch.int32, torch.float32)
@@ -145,9 +150,11 @@ def merge(a: torch.Tensor, b: torch.Tensor, *, tile: int = DEFAULT_TILE, leaf: i
     """Stable A-priority merge of two sorted 1-D arrays of one dtype (K1).
 
     Keys are int16, int32, float32 or bfloat16, compared with the raw
-    ``<=``.  The kernel writes one ``tile`` of outputs per block, split into
-    leaves of ``leaf``; the result does not depend on either.  Returns the
-    ``na + nb`` merged keys.
+    ``<=``.  The operands may start at any element.  The kernel writes
+    :data:`MERGE_SPAN` outputs per block, each thread merging 16 of them
+    after one co-rank search; ``tile`` and ``leaf`` are the reference's
+    parameters, checked here and ignored by the kernel (the stable merge has
+    one result whatever they are).  Returns the ``na + nb`` merged keys.
 
     A CUDA tensor launches the kernel (and counts one in
     ``merge.launches``; two empty arrays launch nothing); a CPU tensor
@@ -179,7 +186,9 @@ def merge_kv(
     """Stable A-priority key-value merge of two sorted 1-D arrays (K2).
 
     Keys as in :func:`merge`; values are int32 or float32, one dtype, one
-    per key.  Returns the merged ``(keys, values)``.  A CUDA tensor
+    per key.  The kernel is :func:`merge`'s with the values moved beside
+    the keys, :data:`MERGE_KV_SPAN` outputs per block.  Returns the merged
+    ``(keys, values)``.  A CUDA tensor
     launches the kernel (counted in ``merge_kv.launches``); a CPU tensor
     takes :func:`merge_kv_ref`.
     """

@@ -28,8 +28,13 @@ def _sorted_keys(dtype, family, n, rng):
     """One sorted side of a merge.  ``mixed``, in order: -inf or iinfo.min;
     heavy duplicates with -0.0 and +0.0 in one run (signs at random); a
     long run of one key; keys equal to the sentinel (+inf or iinfo.max).
-    ``all_equal``: one key throughout."""
+    ``all_equal``: one key throughout.  ``low`` and ``high``: duplicated
+    keys in [-1000, -1] and in [1, 1000], so every low key lies below every
+    high one."""
     x = np.full(n, 50.0)
+    if family in ("low", "high"):
+        x = np.sort(np.round(rng.uniform(1, 1000, n)))
+        x = -x[::-1] if family == "low" else x
     if family == "mixed":
         q = n // 4
         x[: n // 2] = np.sort(np.round(rng.standard_normal(n // 2) * 4))
@@ -74,8 +79,11 @@ _both_merge_kv = jax.jit(
     lambda *x: (jax_core.merge_kv(*x), merge_kv_pallas(*x, tile=TILE, leaf=LEAF, interpret=True))
 )
 
-CASES = [  # (a dtype, b dtype, family, na, nb, run the Pallas kernel)
+CASES = [  # (a dtype, b dtype, family or "a family/b family", na, nb, run the Pallas kernel)
     (np.float32, np.float32, "mixed", 700, 500, True),
+    (np.float32, np.float32, "mixed", 1, 1500, True),  # one key against a long B
+    (np.int32, np.int32, "low/high", 600, 500, True),  # disjoint: all of A below all of B
+    (BF16, BF16, "high/low", 500, 600, True),  # and all of A above all of B
     (BF16, BF16, "mixed", 700, 500, True),
     (np.int16, np.int32, "mixed", 700, 500, True),  # promotion to int32, as JAX promotes
     (np.int32, np.int32, "all_equal", 600, 500, True),
@@ -88,7 +96,8 @@ CASES = [  # (a dtype, b dtype, family, na, nb, run the Pallas kernel)
 @pytest.mark.parametrize("da,db,family,na,nb,pallas", CASES)
 def test_merge_matches_reference(da, db, family, na, nb, pallas):
     rng = np.random.default_rng(na * 7 + nb)
-    a, b = _sorted_keys(da, family, na, rng), _sorted_keys(db, family, nb, rng)
+    fa, _, fb = family.partition("/")
+    a, b = _sorted_keys(da, fa, na, rng), _sorted_keys(db, fb or fa, nb, rng)
     if pallas:
         want, kernel = _both_merge(jnp.asarray(a), jnp.asarray(b))
         _same(kernel, want)
@@ -115,8 +124,11 @@ def test_signed_zeros_keep_a_priority():
     _same(km.merge(_t(a), _t(b), tile=4, leaf=2), want)
 
 
-KV_CASES = [  # (key dtype, value dtype, family, na, nb, run the Pallas kernel)
+KV_CASES = [  # (key dtype, value dtype, family or "a family/b family", na, nb, run the Pallas kernel)
     (np.int32, np.int32, "mixed", 700, 500, True),
+    (np.int32, np.int32, "mixed", 1, 1500, True),  # one key against a long B
+    (np.float32, np.int32, "low/high", 500, 600, True),  # disjoint, both ways
+    (np.int16, np.float32, "high/low", 600, 500, True),
     (np.float32, np.float32, "mixed", 500, 700, True),
     (BF16, np.int32, "all_equal", 600, 500, True),
     (np.int16, np.float32, "mixed", 500, 600, True),
@@ -127,7 +139,8 @@ KV_CASES = [  # (key dtype, value dtype, family, na, nb, run the Pallas kernel)
 @pytest.mark.parametrize("dk,dv,family,na,nb,pallas", KV_CASES)
 def test_merge_kv_matches_reference(dk, dv, family, na, nb, pallas):
     rng = np.random.default_rng(na * 5 + nb)
-    ak, bk = _sorted_keys(dk, family, na, rng), _sorted_keys(dk, family, nb, rng)
+    fa, _, fb = family.partition("/")
+    ak, bk = _sorted_keys(dk, fa, na, rng), _sorted_keys(dk, fb or fa, nb, rng)
     av = np.arange(na).astype(dv)  # every value names its source slot
     bv = np.arange(na, na + nb).astype(dv)
     jargs = [jnp.asarray(x) for x in (ak, av, bk, bv)]
@@ -148,6 +161,32 @@ def test_merge_kv_matches_reference(dk, dv, family, na, nb, pallas):
         _same(gk, wk)
         _same(gv, wv)
     assert km.merge_kv.launches == before
+
+
+@pytest.mark.parametrize("dtype,offs", [(np.float32, (1, 3)), (BF16, (3, 1)), (np.int16, (2, 5))])
+def test_merge_takes_offset_views(dtype, offs):
+    """Operands that start off a 16-byte boundary (``torch.from_numpy(x)[k:]``,
+    as K1's and K2's kernels read them on the card through their windows'
+    aligned covers) merge as the arrays they view."""
+    rng = np.random.default_rng(offs[0] * 10 + offs[1])
+    x, y = _sorted_keys(dtype, "mixed", 700 + offs[0], rng), _sorted_keys(dtype, "mixed", 500 + offs[1], rng)
+    a, b = x[offs[0]:], y[offs[1]:]
+    want, kernel = _both_merge(jnp.asarray(a), jnp.asarray(b))
+    _same(kernel, want)
+    ta, tb = _t(x)[offs[0]:], _t(y)[offs[1]:]
+    assert (ta.storage_offset(), tb.storage_offset()) == offs and ta.is_contiguous()
+    _same(ops.merge(ta, tb, tile=TILE, leaf=LEAF), want)
+    _same(km.merge(ta, tb, tile=TILE, leaf=LEAF), want)
+    v = np.arange(offs[0] + 700 + offs[1] + 500, dtype=np.int32)
+    av, bv = v[offs[0]:offs[0] + 700], v[offs[0] + 700 + offs[1]:]
+    (wk, wv), (pk, pv) = _both_merge_kv(*(jnp.asarray(z) for z in (a, av, b, bv)))
+    _same(pk, wk)
+    _same(pv, wv)
+    tv = torch.from_numpy(v)
+    targs = (ta, tv[offs[0]:offs[0] + 700], tb, tv[offs[0] + 700 + offs[1]:])
+    for gk, gv in (ops.merge_kv(*targs, tile=TILE, leaf=LEAF), km.merge_kv(*targs, tile=TILE, leaf=LEAF)):
+        _same(gk, wk)
+        _same(gv, wv)
 
 
 def test_oracles_agree_on_integer_keys():
