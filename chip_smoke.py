@@ -28,7 +28,10 @@ Phases (any failure raises, and the script exits non-zero):
 5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
    K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
    (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
-   last tile, a (T, S) sweep and the benchmark's small rows;
+   last tile, a (T, S) sweep and the benchmark's small rows; K5 and K7 at
+   the edges of their row span (totals around ``MERGE_ROWS_SPAN``, rows
+   and views off a 16-byte boundary, lopsided and disjoint rows, ragged
+   totals on a seam) and ``ops.merge_k`` at k = 3 and 6 over odd widths;
    ``ops.merge_k`` (3 K7 rounds each) on k = 8 runs of 2^21, on the sample
    sort's combine and on k = 5; the ragged top-k and the samplers' masked
    vocab; the path driven once with the launch counts read; CUDA-event
@@ -460,6 +463,12 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     for what, (a, b) in (("A below B", (low_high[:n1], low_high[n1:])), ("A above B", (low_high[n1:], low_high[:n1]))):
         merge_case(a, b, f"merge disjoint, {what}")
         kv_case(a, b, f"merge_kv disjoint, {what}")
+    # unsorted inputs break the contract and their merge is unspecified, but
+    # K1 must stay inside its buffers: the card runs on
+    noise = torch.randint(-1000, 1000, (2 * n1,), generator=gen, device=device, dtype=torch.int32)
+    got = launched(km.merge, lambda: km.merge(noise[:n1], noise[n1:], tile=tile, leaf=leaf), 1)
+    int(got.long().sum())  # waits for the kernel: a fault raises here
+    check(got.shape == (2 * n1,), "merge of unsorted inputs: shape")
 
     # K3: every wide round of a 2^log2n sort, then whole sorts
     def round_keys(keys, width):
@@ -728,7 +737,11 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     Wide rows ``(bsz, 2^log2n) + (bsz, 2^log2n)``; ragged lengths from the
     seed with edge rows; a shape whose rows do not fill their last tile;
     rows that fit one tile (the core path); a (T, S) sweep; the benchmark's
-    own small-row shapes; ``ops.merge_k`` on k = 8 runs of ``2^log2_run``,
+    own small-row shapes; K5 and K7 at the edges of their row span
+    (``MERGE_ROWS_SPAN``: totals around it, rows that start off a 16-byte
+    boundary, views, lopsided and disjoint rows, ragged totals on a seam)
+    and ``ops.merge_k`` at k = 3 and 6 over odd run widths;
+    ``ops.merge_k`` on k = 8 runs of ``2^log2_run``,
     on the sample sort's combine (an ``(8, 2^(log2_run + 1))`` stack with
     lengths around ``2^(log2_run - 3)``) and on k = 5; the ragged top-k at
     ``(4, vocab)`` and the samplers' masked vocab.  Every kernel call is
@@ -815,6 +828,77 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     rag_a, rag_b = (sorted_side("random", 4096, torch.float32, gen, device, 64) for _ in range(2))
     rag_al, rag_bl = (torch.randint(0, 4097, (64,), generator=gen, device=device).to(torch.int32) for _ in range(2))
     run("merge_batched_ragged", (rag_a, rag_b, rag_al, rag_bl), "(64, 4096+4096)")
+
+    # K5 and K7 at the edges of the row span merge (a block writes
+    # MERGE_ROWS_SPAN outputs of one row and reads exactly its two windows):
+    # totals around one span and one between the tile and the span; row
+    # widths that are no multiple of 16 bytes, so that output rows start off
+    # a 16-byte boundary; views that start off one; lopsided and disjoint
+    # rows; ragged rows of 0/0, 0/full, full/0 and totals that end on a seam
+    span = km.MERGE_ROWS_SPAN
+
+    def edge_case(what, na, nb, dtypes=(torch.int32, torch.int16), kind="dups", offs=(0, 0), rows=4, lens=None):
+        """K5 and K7 on rows ``a[:, offs[0]:]`` and ``b[:, offs[1]:]`` of
+        contiguous buffers; integers also against a stable row-wise
+        ``torch.sort``.  ``lens`` replaces the first rows' ragged lengths."""
+        for dtype in dtypes:
+            fa = sorted_side(kind, offs[0] + na, dtype, gen, device, rows)
+            fb = sorted_side(kind, offs[1] + nb, dtype, gen, device, rows)
+            al, bl = ragged_lens(rows, na, nb, gen, device)
+            for r, (x, y) in enumerate(lens or ()):
+                al[r], bl[r] = x, y
+            a, b = fa[:, offs[0]:], fb[:, offs[1]:]
+            aj = torch.cat([fa[:, :offs[0]], junk_tails(a, al, gen)], 1)[:, offs[0]:]
+            bj = torch.cat([fb[:, :offs[1]], junk_tails(b, bl, gen)], 1)[:, offs[1]:]
+            label = f"{what} {dtype} ({rows}, {na}+{nb}) at offsets {offs}"
+            got = run("merge_batched", (a, b), label)[0]
+            got_r = run("merge_batched_ragged", (aj, bj, al, bl), label)[0]
+            if not dtype.is_floating_point:
+                bit_err(got, sorted_merge_rows(a, b), f"merge_batched {label} vs torch.sort")
+                bit_err(got_r, sorted_merge_rows(aj, bj, al, bl), f"merge_batched_ragged {label} vs torch.sort")
+
+    edge_case("total span - 1", span // 2, span // 2 - 1)
+    edge_case("total span", span // 2, span // 2, dtypes=(torch.int32, torch.float32))
+    edge_case("total span + 1", span // 2 + 1, span // 2)
+    edge_case("total between tile and span", (tile + span) // 6, (tile + span) // 3, dtypes=(torch.int16, torch.bfloat16))
+    edge_case("odd width", 3 * span // 2 + 1, span + 2, dtypes=(torch.int32, torch.int16, torch.float32))
+    edge_case("width 2 mod 8", n1 // 4 + 1, n1 // 4 + 1, dtypes=(torch.int16, torch.bfloat16))
+    edge_case("views", 2 * span + 5, span - 3, offs=(1, 3), dtypes=(torch.int32, torch.int16, torch.float32))
+    edge_case("views, wide", n1, n1, offs=(1, 3), kind="random", dtypes=(torch.float32,))
+    edge_case("lopsided (1, n)", 1, n1, kind="random")
+    edge_case("lopsided (n, 1)", n1, 1, kind="random")
+    edge_case("ragged seams", 2 * span + 3, 2 * span + 1,
+              lens=[(0, 0), (0, 2 * span + 1), (2 * span + 3, 0), (span - 5, 5), (span + 7, span - 7)], rows=6)
+    low_high = sorted_side("random", 2 * n1, torch.int32, gen, device, 4)
+    for what, (a, b) in (("A below B", (low_high[:, :n1], low_high[:, n1:])), ("A above B", (low_high[:, n1:], low_high[:, :n1]))):
+        al, bl = ragged_lens(4, n1, n1, gen, device)
+        got = run("merge_batched", (a, b), f"disjoint, {what}")[0]
+        got_r = run("merge_batched_ragged", (a, b, al, bl), f"disjoint, {what}")[0]
+        bit_err(got, sorted_merge_rows(a, b), f"merge_batched disjoint, {what} vs torch.sort")
+        bit_err(got_r, sorted_merge_rows(a, b, al, bl), f"merge_batched_ragged disjoint, {what} vs torch.sort")
+    # unsorted rows, likewise: K5 and K7 stay inside their buffers
+    noise = torch.randint(-1000, 1000, (4, 2 * n1), generator=gen, device=device, dtype=torch.int32)
+    full = torch.full((4,), n1, dtype=torch.int32, device=device)
+    for name, args in (("merge_batched", (noise[:, :n1], noise[:, n1:])),
+                       ("merge_batched_ragged", (noise[:, :n1], noise[:, n1:], full, full))):
+        before = fns[name].launches
+        got = fns[name](*args, tile=tile, leaf=leaf)
+        int(got.long().sum())  # waits for the kernel: a fault raises here
+        check(fns[name].launches - before == int(on_card) and got.shape == (4, 2 * n1), f"{name} of unsorted rows")
+    # merge_k over odd run widths: k = 3 (2 rounds) and k = 6 (3 rounds)
+    for k, width in ((3, 3 * span // 2 + 1), (6, span + 3)):
+        lens = torch.randint(0, width + 1, (k,), generator=gen, device=device).to(torch.int32)
+        lens[0], lens[-1] = width, 0
+        runs = junk_tails(sorted_side("dups", width, torch.int32, gen, device, k), lens, gen)
+        before = km.merge_batched_ragged.launches
+        got = ops.merge_k(runs, lens, tile=tile, leaf=leaf)
+        rounds = (k - 1).bit_length()
+        check(km.merge_batched_ragged.launches - before == rounds * int(on_card),
+              f"merge_k k={k}: {km.merge_batched_ragged.launches - before} K7 launches, want {rounds}")
+        bit_err(got, core.merge_k(runs, lens), f"merge_k k={k} width {width} against the core tournament")
+        valid = torch.cat([runs[i, : int(lens[i])] for i in range(k)])
+        bit_err(got[: valid.shape[0]], torch.sort(valid, stable=True).values, f"merge_k k={k} width {width} vs torch.sort")
+        check(bool((got[valid.shape[0]:] == max_sentinel(runs.dtype)).all()), f"merge_k k={k}: tail not sentinel")
 
     # the k-way merges: k = 8 full runs; the sample sort's combine; k = 5
     nr = 1 << log2_run
@@ -1772,11 +1856,18 @@ def merge_registers(built: dict) -> str:
     log = built["merge"].ptxas
     rows = []
     for kernel, used, spills in ptxas_kernels(log):
-        span, tiled = re.search("merge_span_kernel" + key, kernel), re.search("merge_rows_kernel" + key + "Lb([01])E", kernel)
-        if not (span or tiled):
+        span = re.search("merge_span_kernel" + key, kernel)  # K1, K2
+        row_span = re.search("merge_rows_span_kernel" + key, kernel)  # K5, K7
+        tiled = re.search("merge_rows_kernel" + key + "Lb([01])E", kernel)  # K6, K8
+        m = span or row_span or tiled
+        if not m:
             continue
-        m = span or tiled
-        label = f"K{1 + int(m.group(2))}" if span else f"K{5 + int(m.group(2)) + 2 * int(m.group(3))}"
+        if span:
+            label = f"K{1 + int(m.group(2))}"
+        elif row_span:
+            label = f"K{5 + 2 * int(m.group(2))}"
+        else:
+            label = f"K{5 + int(m.group(2)) + 2 * int(m.group(3))}"
         regs = re.search(r"Used (\d+) registers", used).group(1)
         spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
         rows.append((label, list(dtypes).index(m.group(1)), f"{label} {dtypes[m.group(1)]} {regs} registers {spill} B spill"))

@@ -5,13 +5,14 @@
 // merge_pallas) and ::_merge_kv_kernel (launched by merge_kv_pallas), with
 // the start tables of _prepare and the host-side sentinel padding of both
 // inputs (K1 and K2 on the per-thread segment merge of segment_merge.cuh);
-// and ::_merge_batched_kernel (merge_batched_pallas, K5),
-// ::_merge_kv_batched_kernel (merge_kv_batched_pallas, K6),
-// ::_merge_batched_ragged_kernel (merge_batched_ragged_pallas, K7) and
-// ::_merge_kv_batched_ragged_kernel (merge_kv_batched_ragged_pallas, K8),
-// with the start tables of _prepare_batched{,_ragged}, the host-side masking
-// of the ragged tails (_mask_rows) and the host-side padding of every row
-// (K5-K8 on the tile body of merge_tile.cuh).
+// ::_merge_batched_kernel (merge_batched_pallas, K5) and
+// ::_merge_batched_ragged_kernel (merge_batched_ragged_pallas, K7), with the
+// start tables of _prepare_batched{,_ragged}, the host-side masking of the
+// ragged tails (_mask_rows) and the host-side padding of every row (K5 and
+// K7 on the same segment merge, per row); and ::_merge_kv_batched_kernel
+// (merge_kv_batched_pallas, K6) and ::_merge_kv_batched_ragged_kernel
+// (merge_kv_batched_ragged_pallas, K8), likewise (K6 and K8 on the tile body
+// of merge_tile.cuh).
 //
 // K1/K2 (merge_span_kernel): what bounds them is memory.  K1 reads n = na +
 // nb keys and writes n: 2 * n * sizeof(K) bytes, 0.080 ms for 2 x 2^24
@@ -40,26 +41,38 @@
 // `tile` and `leaf` are the reference's and do not change a bit of the
 // stable merge's one output, so the kernel ignores them.
 //
-// K5-K8 (merge_rows_kernel<K, kValues, kRagged>): the tile body of
-// merge_tile.cuh over rows.  The grid has B * cdiv(na + nb, T) blocks, (row,
-// tile) linearised over blockIdx.x, since gridDim.y stops at 65535.  Block t
-// of a row bisects diagonal t * T in global memory (block_co_rank), stages
-// the valid prefixes of its two T-windows, splits the tile into leaves of S
-// by Algorithm 2 and finds each output slot by a co-rank inside its leaf.
-// Rows are read at strides a_stride and b_stride (elements; values share
-// their keys' stride) and written at out_stride, so the k-way tournament
-// reads the even and odd rows of the previous round in place.  Row r merges
-// la = na and lb = nb elements (K5, K6), or, ragged (K7, K8), la =
-// clamp(a_lens[r], 0, na) and lb likewise.  Tile t covers diagonals d = t *
-// T .. d + n_out with n_out = min(na + nb - d, T), so the last tile of a row
-// is short and never touches the next row.  A tile past the row's total (d
-// >= la + lb) writes n_out sentinel keys and zero values and returns: no
-// search, no staging.  Otherwise the start search is bounded by la and lb,
-// so it never probes a tail, whatever the tail holds; the tile body writes
-// min(la + lb - d, T) outputs and the block fills the rest of its n_out
-// slots with the sentinel (+inf for floats, the largest int) and zero
-// values.  Pads are excluded by index, never by comparison, so real keys
-// equal to the sentinel keep their values.
+// K5/K7 (merge_rows_span_kernel<K, kRagged>): K1's block over rows, the
+// paper's Segmented Parallel Merge applied per row.  The grid has B *
+// cdiv(na + nb, kRowsSpan) blocks, (row, span) linearised over blockIdx.x,
+// since gridDim.y stops at 65535.  Row r merges la = na and lb = nb keys
+// (K5), or, ragged (K7), la = clamp(a_lens[r], 0, na) and lb likewise.  A
+// block covers outputs o0 .. o0 + n_out of its row, n_out = min(na + nb -
+// o0, kRowsSpan), and merges the first n_valid = clamp(la + lb - o0, 0,
+// n_out) of them as K1 does, over (a + r * a_stride, la, b + r * b_stride,
+// lb): the two searches by warps 0 and 1, exactly its two windows staged
+// (never past la or lb, so a tail is never read, whatever it holds), one
+// co-rank and kRowsE outputs a thread.  The slots after n_valid are
+// sentinels (+inf for floats, the largest int); a block with n_valid = 0,
+// most of the blocks of merge_k's combine, only stores them.  Rows are read
+// at strides a_stride and b_stride (elements) and at any element offset, so
+// the k-way tournament reads the even and odd rows of the previous round in
+// place; the output rows start at r * out_stride, which need not be a
+// multiple of 16 bytes, so one pass of 16-byte stores covers each block's
+// aligned interior and its head and tail go element by element
+// (store_window).  Pads are excluded by index, never by comparison, so
+// real keys equal to the sentinel are data.  `tile` and `leaf` do not
+// change the output, so these kernels ignore them too.
+//
+// K6/K8 (merge_rows_kernel<K, true, kRagged>): the tile body of
+// merge_tile.cuh over rows.  The grid has B * cdiv(na + nb, T) blocks.
+// Block t of a row bisects diagonal t * T in global memory
+// (block_co_rank), stages the valid prefixes of its two T-windows, splits
+// the tile into leaves of S by Algorithm 2 and finds each output slot by a
+// co-rank inside its leaf.  Values share their keys' row stride.  A tile
+// past the row's total (d >= la + lb) writes n_out sentinel keys and zero
+// values and returns; otherwise the start search is bounded by la and lb,
+// the tile body writes min(la + lb - d, T) outputs and the block fills the
+// rest of its slots with the sentinel and zero values.
 //
 // Keys are compared with the raw `<=` of their type (int16, int32, float32,
 // bfloat16; bfloat16 through float), so -0.0 and +0.0 tie and A's comes
@@ -71,7 +84,7 @@
 // (la + lb) + B * n) * sizeof(K) bytes (K8: sizeof(K) + 4).  Every input
 // element is read from device memory once, by coalesced loads into shared
 // memory, and every output written once by coalesced stores; the searches
-// inside a tile run in shared memory.
+// inside a block run in shared memory.
 
 #include "segment_merge.cuh"
 
@@ -86,6 +99,55 @@ constexpr int kThreads = kValues ? 256 : 512;
 // Outputs per block: kernels/merge_path.py's MERGE_SPAN (K1) and MERGE_KV_SPAN (K2).
 template <bool kValues>
 constexpr int kSpan = kThreads<kValues> * kE;
+// K5/K7: threads per block and outputs per block, kernels/merge_path.py's
+// MERGE_ROWS_SPAN.  From a sweep of 256 and 512 threads by 8 and 16 outputs
+// a thread on phase 5's row shapes (PERF.md): 256 x 16 is fastest on the
+// wide rows and on the k-way merge of full runs; 8 outputs a thread win by
+// 4-15 % on the combine, k = 5 and the small rows, which weigh less.
+constexpr int kRowsThreads = 256;
+constexpr int kRowsSpan = 4096;
+constexpr int kRowsE = kRowsSpan / kRowsThreads;
+
+// Outputs o0 .. o0 + n (n > 0) of the stable A-priority merge of a[0 : na]
+// and b[0 : nb] (and their values) into the padded buffers sk[0 : n] and
+// sv[0 : n], by the whole block, each thread merging E of them (K1's block;
+// see the note at the top).  Ends at a barrier.
+template <typename K, bool kValues, int E>
+__device__ __forceinline__ void merge_block(const K* __restrict__ a, const uint32_t* __restrict__ av,
+                                            int64_t na, const K* __restrict__ b,
+                                            const uint32_t* __restrict__ bv, int64_t nb, int64_t o0,
+                                            int n, K* sk, uint32_t* sv, int64_t (&win)[2]) {
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {  // the block's first and last diagonal, in parallel
+    const int64_t r = repro::co_rank_warp(a, na, b, nb, o0 + warp * n);
+    if ((threadIdx.x & 31) == 0) win[warp] = r;
+  }
+  __syncthreads();
+  const int64_t a_lo = win[0];
+  // Sorted inputs give 0 <= wa <= n; the clamp keeps unsorted ones (whose
+  // merge is unspecified) inside the buffers.
+  const int64_t wa64 = win[1] - a_lo;
+  const int wa = static_cast<int>(wa64 < 0 ? 0 : (wa64 < n ? wa64 : n));
+  repro::stage_window(sk, 0, a, a_lo, wa, na);
+  repro::stage_window(sk, wa, b, o0 - a_lo, n - wa, nb);
+  if (kValues) {
+    repro::stage_window(sv, 0, av, a_lo, wa, na);
+    repro::stage_window(sv, wa, bv, o0 - a_lo, n - wa, nb);
+  }
+  __syncthreads();
+
+  const int j0 = threadIdx.x * E;
+  const int e = n - j0 < E ? n - j0 : E;
+  K out[E];
+  uint32_t vout[E];
+  if (e > 0) repro::merge_segment<K, kValues, E>(sk, sv, 0, wa, wa, n - wa, j0, e, out, vout);
+  __syncthreads();  // every thread's reads of the windows are done
+  if (e > 0) {
+    repro::put_segment(sk, j0, e, out);
+    if (kValues) repro::put_segment(sv, j0, e, vout);
+  }
+  __syncthreads();
+}
 
 // K1/K2: kSpan outputs per block; see the note at the top.
 template <typename K, bool kValues>
@@ -102,33 +164,7 @@ __global__ void __launch_bounds__(kThreads<kValues>)
 
   const int64_t o0 = static_cast<int64_t>(blockIdx.x) * kSpanK;
   const int n = static_cast<int>(na + nb - o0 < kSpanK ? na + nb - o0 : kSpanK);
-  const int warp = threadIdx.x >> 5;
-  if (warp < 2) {  // the block's first and last diagonal, in parallel
-    const int64_t r = repro::co_rank_warp(a, na, b, nb, o0 + warp * n);
-    if ((threadIdx.x & 31) == 0) win[warp] = r;
-  }
-  __syncthreads();
-  const int64_t a_lo = win[0];
-  const int wa = static_cast<int>(win[1] - a_lo);
-  repro::stage_window(sk, 0, a, a_lo, wa, na);
-  repro::stage_window(sk, wa, b, o0 - a_lo, n - wa, nb);
-  if (kValues) {
-    repro::stage_window(sv, 0, av, a_lo, wa, na);
-    repro::stage_window(sv, wa, bv, o0 - a_lo, n - wa, nb);
-  }
-  __syncthreads();
-
-  const int j0 = threadIdx.x * kE;
-  const int e = n - j0 < kE ? n - j0 : kE;
-  K out[kE];
-  uint32_t vout[kE];
-  if (e > 0) repro::merge_segment<K, kValues, kE>(sk, sv, 0, wa, wa, n - wa, j0, e, out, vout);
-  __syncthreads();  // every thread's reads of the windows are done
-  if (e > 0) {
-    repro::put_segment(sk, j0, e, out);
-    if (kValues) repro::put_segment(sv, j0, e, vout);
-  }
-  __syncthreads();
+  merge_block<K, kValues, kE>(a, av, na, b, bv, nb, o0, n, sk, sv, win);
   repro::store_span(ok + o0, sk, n);
   if (kValues) repro::store_span(ov + o0, sv, n);
 }
@@ -151,7 +187,62 @@ int launch(const void* a, const void* av, int64_t na, const void* b, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5-K8: one (row, tile) per block; see the note at the top.
+// K5/K7: one (row, span) per block; see the note at the top.
+template <typename K, bool kRagged>
+__global__ void __launch_bounds__(kRowsThreads)
+    merge_rows_span_kernel(const K* __restrict__ a, int64_t na, int64_t a_stride,
+                           const int32_t* __restrict__ a_lens, const K* __restrict__ b, int64_t nb,
+                           int64_t b_stride, const int32_t* __restrict__ b_lens, K* __restrict__ out,
+                           int64_t out_stride, unsigned spans_per_row) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  K* const sk = reinterpret_cast<K*>(smem_raw);
+  __shared__ int64_t win[2];
+
+  // The launch keeps the grid below 2^31 blocks: 32-bit block arithmetic is exact.
+  const unsigned row = blockIdx.x / spans_per_row;
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x - row * spans_per_row) * kRowsSpan;
+  const int n_out = static_cast<int>(na + nb - o0 < kRowsSpan ? na + nb - o0 : kRowsSpan);
+  int64_t la = na;
+  int64_t lb = nb;
+  if (kRagged) {
+    const int64_t ra = a_lens[row];
+    const int64_t rb = b_lens[row];
+    la = ra < 0 ? 0 : (ra < na ? ra : na);
+    lb = rb < 0 ? 0 : (rb < nb ? rb : nb);
+  }
+  const int64_t left = la + lb - o0;
+  const int n_valid = left <= 0 ? 0 : (left < n_out ? static_cast<int>(left) : n_out);
+  if (n_valid > 0) {  // the same for every thread of the block
+    merge_block<K, false, kRowsE>(a + static_cast<int64_t>(row) * a_stride, nullptr, la,
+                                  b + static_cast<int64_t>(row) * b_stride, nullptr, lb, o0, n_valid,
+                                  sk, nullptr, win);
+  }
+  repro::store_window(out + static_cast<int64_t>(row) * out_stride + o0, n_out, [&](int i) {
+    return !kRagged || i < n_valid ? sk[repro::spad<K>(i)] : repro::key_max<K>();
+  });
+}
+
+template <typename K, bool kRagged>
+int launch_rows_span(const void* a, int64_t na, int64_t a_stride, const void* a_lens, const void* b,
+                     int64_t nb, int64_t b_stride, const void* b_lens, void* out,
+                     int64_t out_stride, int64_t rows, void* stream) {
+  const int64_t n = na + nb;
+  if (n == 0 || rows == 0) return 0;
+  const int64_t spans_per_row = (n + kRowsSpan - 1) / kRowsSpan;
+  if (rows * spans_per_row > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  constexpr size_t kSmem = repro::spad_slots<K>(kRowsSpan + 1) * sizeof(K);
+  const cudaError_t err = repro::allow_smem(merge_rows_span_kernel<K, kRagged>, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_rows_span_kernel<K, kRagged>
+      <<<static_cast<unsigned>(rows * spans_per_row), kRowsThreads, kSmem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const K*>(a), na, a_stride, static_cast<const int32_t*>(a_lens),
+          static_cast<const K*>(b), nb, b_stride, static_cast<const int32_t*>(b_lens),
+          static_cast<K*>(out), out_stride, static_cast<unsigned>(spans_per_row));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6/K8: one (row, tile) per block; see the note at the top.
 template <typename K, bool kValues, bool kRagged>
 __global__ void merge_rows_kernel(const K* __restrict__ a, const uint32_t* __restrict__ av,
                                   int64_t na, int64_t a_stride, const int32_t* __restrict__ a_lens,
@@ -237,9 +328,10 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
   int merge_batched_##SUFFIX(const void* a, int64_t na, int64_t a_stride, const void* b,         \
                              int64_t nb, int64_t b_stride, void* out, int64_t out_stride,        \
                              int64_t rows, int tile, int leaf, void* stream) {                   \
-    return launch_rows<K, false, false>(a, nullptr, na, a_stride, nullptr, b, nullptr, nb,       \
-                                        b_stride, nullptr, out, nullptr, out_stride, rows, tile, \
-                                        leaf, stream);                                           \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch_rows_span<K, false>(a, na, a_stride, nullptr, b, nb, b_stride, nullptr, out,    \
+                                      out_stride, rows, stream);                                  \
   }                                                                                               \
   int merge_kv_batched_##SUFFIX(const void* ak, const void* av, int64_t na, int64_t a_stride,    \
                                 const void* bk, const void* bv, int64_t nb, int64_t b_stride,    \
@@ -253,9 +345,10 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
                                     int64_t b_stride, const void* b_lens, void* out,             \
                                     int64_t out_stride, int64_t rows, int tile, int leaf,        \
                                     void* stream) {                                              \
-    return launch_rows<K, false, true>(a, nullptr, na, a_stride, a_lens, b, nullptr, nb,         \
-                                       b_stride, b_lens, out, nullptr, out_stride, rows, tile,   \
-                                       leaf, stream);                                            \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch_rows_span<K, true>(a, na, a_stride, a_lens, b, nb, b_stride, b_lens, out,       \
+                                     out_stride, rows, stream);                                   \
   }                                                                                               \
   int merge_kv_batched_ragged_##SUFFIX(const void* ak, const void* av, int64_t na,               \
                                        int64_t a_stride, const void* a_lens, const void* bk,     \

@@ -1,15 +1,16 @@
 // The paper's per-thread segment merge in shared memory, for Hopper (sm_90a).
 //
-// Shared by the 1-D merges K1 and K2 (merge.cu), K3's wide sort round
-// (sort_round.cu) and the tile sort S1 (sort_tiles.cu), over keys of 2 or 4
-// bytes (int16, int32, float32, bfloat16: key_le of merge_tile.cuh) and
-// 32-bit values.  Each thread owns E consecutive outputs of a merge: it
-// finds its diagonal with one co-rank (Algorithm 2) over the two sorted
-// inputs in shared memory, then merges its E outputs sequentially into
-// registers with one comparison and one shared-memory read each (the
-// Segmented Parallel Merge of the paper, one core per thread).  The merge is
-// stable with A-priority; sides end by index, never by comparing against a
-// sentinel, so keys equal to iinfo.max are data.
+// Shared by the 1-D merges K1 and K2 and the row merges K5 and K7
+// (merge.cu), K3's wide sort round (sort_round.cu) and the tile sort S1
+// (sort_tiles.cu), over keys of 2 or 4 bytes (int16, int32, float32,
+// bfloat16: key_le of merge_tile.cuh) and 32-bit values.  Each thread owns
+// E consecutive outputs of a merge: it finds its diagonal with one co-rank
+// (Algorithm 2) over the two sorted inputs in shared memory, then merges its
+// E outputs sequentially into registers with one comparison and one
+// shared-memory read each (the Segmented Parallel Merge of the paper, one
+// core per thread).  The merge is stable with A-priority; sides end by
+// index, never by comparing against a sentinel, so keys equal to iinfo.max
+// are data.
 //
 // Shared-memory layout: element i of a buffer lives at slot spad<T>(i), with
 // one 4-byte word of padding after every 128 bytes.  A thread's E outputs
@@ -146,6 +147,30 @@ __device__ __forceinline__ void store_span(T* __restrict__ g, const T* s, int n)
     *reinterpret_cast<int4*>(g + static_cast<int64_t>(v) * kVec) = x.q;
   }
   for (int i = nvec * kVec + threadIdx.x; i < n; i += blockDim.x) g[i] = s[spad<T>(i)];
+}
+
+// Write elem(0) .. elem(n - 1) to g[0 : n] by the whole block: 16-byte
+// stores over the 16-byte-aligned interior, the head and the tail element
+// by element, so g need only be aligned to its element (store_span's
+// counterpart of stage_window, for rows that start anywhere).
+template <typename T, typename F>
+__device__ __forceinline__ void store_window(T* __restrict__ g, int n, F elem) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lead = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) / sizeof(T));
+  const int head = lead < n ? lead : n;
+  const int nvec = (n - head) / kVec;
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const int i0 = head + v * kVec;
+    Vec16<T> x;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) x.x[c] = elem(i0 + c);
+    *reinterpret_cast<int4*>(g + i0) = x.q;
+  }
+  const int tail = head + nvec * kVec;
+  for (int i = threadIdx.x; i < head + n - tail; i += blockDim.x) {
+    const int j = i < head ? i : tail + (i - head);
+    g[j] = elem(j);
+  }
 }
 
 // Write a thread's e outputs to the padded buffer at j0 .. j0 + e - 1.

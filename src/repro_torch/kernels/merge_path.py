@@ -19,8 +19,8 @@ The counterparts of the reference's Pallas entry points
   ``B`` independent row merges, the ragged ones with per-row valid
   lengths, ``csrc/merge.cu``.
 
-K1, K2, K3 and S1 share the per-thread segment merge of
-``csrc/segment_merge.cuh``; K4-K8 share the tile body of
+K1, K2, K3, S1, K5 and K7 share the per-thread segment merge of
+``csrc/segment_merge.cuh``; K4, K6 and K8 share the tile body of
 ``csrc/merge_tile.cuh``.  A sort keeps one
 flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
 ``width``, then ``tile`` sentinel keys (with zero values).  One round
@@ -54,6 +54,9 @@ MAX_TILE = 4096  # K6's windows at 4-byte keys: 64 KB of shared memory
 # kSpan<true> in csrc/merge.cu, which must agree.
 MERGE_SPAN = 8192
 MERGE_KV_SPAN = 4096
+# Outputs per block of each row of K5 and K7, whatever the tile: kRowsSpan in
+# csrc/merge.cu, which must agree.
+MERGE_ROWS_SPAN = 4096
 KEY_DTYPES = (torch.int16, torch.int32)
 MERGE_KEY_DTYPES = (torch.int16, torch.int32, torch.float32, torch.bfloat16)
 MERGE_VALUE_DTYPES = (torch.int32, torch.float32)
@@ -497,8 +500,10 @@ def merge_batched(a: torch.Tensor, b: torch.Tensor, *, tile: int = DEFAULT_TILE,
     ``a`` is ``(B, na)``, ``b`` is ``(B, nb)``, one key dtype as in
     :func:`merge`; each may be a view with any row stride whose elements
     are adjacent.  Returns the contiguous ``(B, na + nb)`` merged rows.  A
-    CUDA tensor launches the kernel (counted in ``merge_batched.launches``);
-    a CPU tensor takes :func:`merge_batched_ref`.
+    CUDA tensor launches the kernel (counted in ``merge_batched.launches``):
+    K1's segment merge per row, :data:`MERGE_ROWS_SPAN` outputs of a row per
+    block, whatever ``tile`` and ``leaf`` (checked, and kept for the
+    reference's signature); a CPU tensor takes :func:`merge_batched_ref`.
     """
     _check_rows("merge_batched", a, b, tile, MERGE_KEY_DTYPES)
     if not _on_card("merge_batched", a):
@@ -578,8 +583,8 @@ def merge_batched_ragged(
     na]`` (``[0, nb]``) and never reads past it.  Row ``r`` of the result
     starts with the merge of ``a[r, :a_lens[r]]`` and ``b[r, :b_lens[r]]``,
     followed by sentinel keys.  A CUDA tensor launches the kernel (counted
-    in ``merge_batched_ragged.launches``); a CPU tensor takes
-    :func:`merge_batched_ragged_ref`.
+    in ``merge_batched_ragged.launches``), blocked as :func:`merge_batched`'s;
+    a CPU tensor takes :func:`merge_batched_ragged_ref`.
     """
     _check_rows("merge_batched_ragged", a, b, tile, MERGE_KEY_DTYPES)
     _check_lens("merge_batched_ragged", a_lens, a)

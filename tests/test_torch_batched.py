@@ -10,6 +10,7 @@ are compared, so ``-0.0`` and ``+0.0`` count as different.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -119,6 +120,74 @@ def test_rows_are_read_at_their_stride(fn):
         want = getattr(core, fn)(*(x.contiguous() for x in args))
         for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
             same(g, w)
+
+
+SPAN = km.MERGE_ROWS_SPAN
+# K5's edges: (name, na, nb, dtype, view offsets into each row's buffer);
+# the rows past a few thousand elements are held against the JAX core alone
+_EDGES = [
+    ("total span - 1", SPAN // 2, SPAN // 2 - 1, np.int32, (0, 0)),
+    ("total span", SPAN // 2, SPAN // 2, np.float32, (0, 0)),
+    ("total span + 1", SPAN // 2 + 1, SPAN // 2, np.int16, (0, 0)),
+    ("total between tile and span", (TILE + SPAN) // 6, (TILE + SPAN) // 3, BF16, (0, 0)),
+    ("odd widths, views", 37, 26, np.int16, (1, 3)),
+    ("width 2 mod 8, views", 41, 41, np.float32, (1, 3)),
+    ("wide odd views", SPAN + 5, SPAN // 2 - 3, np.int32, (1, 3)),
+    ("lopsided (1, n)", 1, 300, np.float32, (0, 0)),
+    ("lopsided (n, 1)", 300, 1, np.int32, (0, 0)),
+]
+
+
+def row_views(x, off):
+    """Rows of ``x`` as views that start ``off`` elements into each row of a
+    contiguous buffer, so that rows start off a 16-byte boundary."""
+    full = to_torch(np.concatenate([np.zeros((x.shape[0], off), x.dtype), x], axis=1))
+    return full[:, off:]
+
+
+_core_merge = jax.jit(jax_bat.merge_batched)
+
+
+@pytest.mark.parametrize("name,na,nb,dtype,offs", _EDGES, ids=[e[0] for e in _EDGES])
+def test_merge_batched_edges_match_reference(name, na, nb, dtype, offs):
+    """K5 at the edges of the row span merge, on views at any element offset."""
+    rng = np.random.default_rng(14)
+    a, b = sorted_rows(dtype, na, rng, rows=3), sorted_rows(dtype, nb, rng, rows=3)
+    if na + nb <= 128:
+        want, kernel = _both_merge(jnp.asarray(a), jnp.asarray(b))
+        same(kernel, want)
+    else:
+        want = _core_merge(jnp.asarray(a), jnp.asarray(b))
+    ta, tb = row_views(a, offs[0]), row_views(b, offs[1])
+    assert ta.stride(0) == na + offs[0] and ta.is_contiguous() == (offs[0] == 0)
+    before = km.merge_batched.launches
+    for got in (ops.merge_batched(ta, tb, tile=TILE, leaf=LEAF), km.merge_batched(ta, tb, tile=TILE, leaf=LEAF),
+                km.merge_batched_ref(ta, tb)):
+        same(got, want)
+    assert km.merge_batched.launches == before
+
+
+@pytest.mark.parametrize("a_first", [True, False])
+def test_merge_batched_disjoint_rows_match_reference(a_first):
+    """Every key of one side below every key of the other: one window of each
+    block's pair is empty."""
+    rng = np.random.default_rng(15)
+    low_high = np.sort(rng.integers(-10**6, 10**6, (3, 2 * 700)), axis=1).astype(np.int32)
+    low, high = low_high[:, :700], low_high[:, 700:]
+    a, b = (low, high) if a_first else (high, low)
+    want = _core_merge(jnp.asarray(a), jnp.asarray(b))
+    ta, tb = torch.from_numpy(low_high)[:, :700], torch.from_numpy(low_high)[:, 700:]
+    ta, tb = (ta, tb) if a_first else (tb, ta)
+    same(ops.merge_batched(ta, tb, tile=TILE, leaf=LEAF), want)
+    same(km.merge_batched(ta, tb, tile=TILE, leaf=LEAF), want)
+
+
+def test_rows_span_matches_the_kernel_source():
+    """``MERGE_ROWS_SPAN`` is K5's and K7's outputs per block in ``merge.cu``."""
+    src = (Path(km.__file__).parent / "csrc" / "merge.cu").read_text()
+    span = int(re.search(r"constexpr int kRowsSpan = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int kRowsThreads = (\d+);", src).group(1))
+    assert span == km.MERGE_ROWS_SPAN and span % threads == 0
 
 
 _BAD = [

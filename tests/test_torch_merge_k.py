@@ -51,6 +51,25 @@ def test_ops_merge_k_matches_reference_kernel_rounds():
     assert km.merge_batched_ragged.launches == 0  # the CPU path launches nothing
 
 
+@pytest.mark.parametrize("k,n", [(3, 37), (6, 61)])
+def test_ops_merge_k_odd_widths_match_reference_kernel_rounds(k, n):
+    """k = 3 (two rounds) and k = 6 (three) over run widths that are no
+    multiple of 4, so every round's rows start off a 16-byte boundary; one
+    run empty and one full."""
+    rng = np.random.default_rng(33 + k)
+    x = np.sort(rng.integers(-6, 6, (k, n)), axis=1).astype(np.int32)
+    x[:, -n // 6 :] = np.iinfo(np.int32).max
+    lens = rng.integers(0, n + 1, k).astype(np.int32)
+    lens[0], lens[-1] = n, 0
+    for r, ln in enumerate(lens):
+        x[r, ln:] = rng.integers(-99, 99, n - ln)  # junk
+    want = jax_ops.merge_k(x, lens, tile=TILE, leaf=LEAF, interpret=True)
+    km.reset_launches()
+    same(ops.merge_k(torch.from_numpy(x), torch.from_numpy(lens), tile=TILE, leaf=LEAF), want)
+    same(core.merge_k(torch.from_numpy(x), torch.from_numpy(lens)), want)
+    assert km.merge_batched_ragged.launches == 0
+
+
 _jax_core_kway = jax.jit(lambda x, v, ln: (jax_core.merge_k(x, ln), jax_core.merge_k_kv(x, v, ln),
                                            jax_core.merge_k_onepass(x, ln), jax_core.merge_k(x),
                                            jax_core.merge_k_onepass(x)))

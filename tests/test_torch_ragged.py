@@ -109,6 +109,44 @@ def test_merge_kv_batched_ragged_matches_reference(dk):
     assert km.merge_kv_batched_ragged.launches == before
 
 
+SPAN = km.MERGE_ROWS_SPAN
+# K7's edges: (name, na, nb, dtype, view offsets, the rows' lengths): rows of
+# 0/0, 0/full, full/0 and totals that end on a span seam or one past it
+_EDGES = [
+    ("odd widths, views", 37, 26, np.int16, (1, 3), [(0, 0), (0, 26), (37, 0), (20, 11), (37, 26)]),
+    ("width 2 mod 8", 41, 41, BF16, (0, 0), [(0, 0), (0, 41), (41, 0), (41, 41), (7, 60)]),
+    ("seams, views", SPAN + 3, SPAN + 1, np.int32, (1, 3),
+     [(0, 0), (0, SPAN + 1), (SPAN + 3, 0), (SPAN - 5, 5), (SPAN + 7, SPAN - 7), (SPAN, 1)]),
+    ("lopsided", 1, 300, np.float32, (0, 0), [(1, 300), (0, 300), (1, 0), (1, 17)]),
+]
+
+
+@pytest.mark.parametrize("name,na,nb,dtype,offs,lens", _EDGES, ids=[e[0] for e in _EDGES])
+def test_merge_batched_ragged_edges_match_reference(name, na, nb, dtype, offs, lens):
+    """K7 at the edges of the row span merge, on views at any element offset
+    with junk tails; rows past a few thousand elements against the JAX core
+    alone."""
+    rng = np.random.default_rng(27)
+    al, bl = (np.array(x, np.int32) for x in zip(*lens))
+    a, b = ragged_rows(dtype, na, al, rng), ragged_rows(dtype, nb, bl, rng)
+    args = [jnp.asarray(x) for x in (a, b, al, bl)]
+    if na + nb <= 128:
+        want, kernel = _both_ragged(*args)
+        same(kernel, want)
+    else:
+        want = jax.jit(jax_core.merge_batched_ragged)(*args)
+    views = []
+    for x, off in zip((a, b), offs):
+        full = to_torch(np.concatenate([np.zeros((x.shape[0], off), x.dtype), x], axis=1))
+        views.append(full[:, off:])
+    targs = [*views, to_torch(al), to_torch(bl)]
+    before = km.merge_batched_ragged.launches
+    for got in (ops.merge_batched_ragged(*targs, tile=TILE, leaf=LEAF),
+                km.merge_batched_ragged(*targs, tile=TILE, leaf=LEAF), km.merge_batched_ragged_ref(*targs)):
+        same(got, want)
+    assert km.merge_batched_ragged.launches == before
+
+
 def test_diagonal_intersections_ragged_matches_reference():
     rng = np.random.default_rng(23)
     a, b = ragged_rows(np.int32, NA, A_LENS, rng), ragged_rows(np.int32, NB, B_LENS, rng)
