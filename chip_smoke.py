@@ -24,14 +24,19 @@ Phases (any failure raises, and the script exits non-zero):
    driven once with the launch counts read; CUDA-event times of each
    kernel, its plain version and one PyTorch call, and of K1 for each key
    dtype; ``ops.sort`` beside one stable ``torch.sort`` and split into S1,
-   K3's rounds and the rest;
+   K3's rounds and the rest; K1 and K3 on unsorted inputs, which must not
+   fault; a float32 ``ops.sort`` and an int32 ``ops.sort_kv`` of 2^24
+   against a stable ``torch.sort``, timed beside it and split into S1 with
+   values, K4's wide rounds and the rest;
 5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
    K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
    (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
-   last tile, a (T, S) sweep and the benchmark's small rows; K5 and K7 at
-   the edges of their row span (totals around ``MERGE_ROWS_SPAN``, rows
-   and views off a 16-byte boundary, lopsided and disjoint rows, ragged
-   totals on a seam) and ``ops.merge_k`` at k = 3 and 6 over odd widths;
+   last tile, a (T, S) sweep and the benchmark's small rows; K5-K8 at
+   the edges of their row spans (totals around ``MERGE_ROWS_SPAN`` and
+   ``MERGE_ROWS_KV_SPAN``, rows and views off a 16-byte boundary, 2-byte
+   keys with 4-byte values, lopsided and disjoint rows, ragged totals on a
+   seam, unsorted rows that must not fault) and ``ops.merge_k`` at k = 3
+   and 6 over odd widths;
    ``ops.merge_k`` (3 K7 rounds each) on k = 8 runs of 2^21, on the sample
    sort's combine and on k = 5; the ragged top-k and the samplers' masked
    vocab; the path driven once with the launch counts read; CUDA-event
@@ -144,14 +149,15 @@ def adversarial_floats(kind: str, n: int, dtype, gen):
     raise ValueError(kind)
 
 
-def round_inputs(keys, width: int):
-    """A flat round input: runs of ``width`` sorted stably, then the tail."""
+def round_inputs(keys, width: int, vals=None):
+    """A flat round input: runs of ``width`` sorted stably with their values
+    (by default each key's index), then the tail."""
     import torch
 
     from repro_torch.core.merge_path import max_sentinel
 
     m = keys.shape[0]
-    vals = torch.arange(m, dtype=torch.int32, device="cuda")
+    vals = torch.arange(m, dtype=torch.int32, device="cuda") if vals is None else vals
     ks, perm = torch.sort(keys.view(-1, width), dim=1, stable=True)
     vs = torch.gather(vals.view(-1, width), 1, perm)
     kf = torch.cat([ks.reshape(-1), torch.full((TILE,), max_sentinel(keys.dtype), dtype=keys.dtype, device="cuda")])
@@ -356,18 +362,21 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     Every merge (K1 and K2 also at the edges of their block span), every
     round and every tile sort (keys alone and with values, over
     ``TILE_KINDS`` and ``TILE_CHUNKS``) is held against the kernel's plain
-    version bit for bit, the whole path is driven once
-    through ``kernels.ops`` with the launch counts set to 0 just before it,
-    and on the card each kernel is timed beside its plain version, its
-    bound and one PyTorch call, and ``ops.sort`` is split into its tile
-    sort, its wide rounds and the rest.
+    version bit for bit; K1 and K3 also run on unsorted inputs, which must
+    not fault; a float32 ``ops.sort`` and an int32 ``ops.sort_kv`` (S1 with
+    values and K4's wide rounds) are held against a stable ``torch.sort``.
+    The whole path is driven once through ``kernels.ops`` with the launch
+    counts set to 0 just before it, and on the card each kernel is timed
+    beside its plain version, its bound and one PyTorch call, and
+    ``ops.sort`` (int32), the float32 ``ops.sort`` and ``ops.sort_kv`` are
+    each split into their tile sort, their wide rounds and the rest.
     With ``device="cpu"`` (the tests, at a small size) the wrappers run
     their plain versions, nothing is launched or timed, and every check
     still runs.
     """
     import torch
 
-    from repro_torch.core.merge_path import max_sentinel
+    from repro_torch.core.merge_path import max_sentinel, total_order_keys
     from repro_torch.kernels import merge_path as km
     from repro_torch.kernels import ops, reset_launches
 
@@ -503,9 +512,34 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     for w in (tile // 2, n1 // 4):
         xf = torch.cat([keys[:1], round_keys(keys, w)])[1:]  # one element past an aligned start
         round_case(xf, w, tile, f"sort_round off a 16-byte boundary width {w}")
+    # unsorted runs break the round's contract and their merge is unspecified,
+    # but K3 must stay inside its buffers: runs wider than its span of 4096,
+    # so that a block's two searches fall inside one pair (16384 on the card,
+    # the same rule at the phase's own size here)
+    w = min(16384, n1 // 2)
+    xf = torch.cat([torch.randint(-1000, 1000, (n1,), generator=gen, device=device, dtype=torch.int32),
+                    torch.full((tile,), max_sentinel(torch.int32), dtype=torch.int32, device=device)])
+    got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=tile, leaf=leaf), 1)
+    int(got.long().sum())  # waits for the kernel: a fault raises here
+    check(got.shape == xf.shape, "sort_round of unsorted runs: shape")
     rows = torch.randint(-(2**31), 2**31 - 1, batch, generator=gen, device=device, dtype=torch.int64).to(torch.int32)
     got = launched(km.sort_round, lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), wide_rounds(batch[1], tile))
     bit_err(got, torch.sort(rows, dim=1, stable=True).values, f"ops.sort_batched {tuple(batch)}")
+
+    # K4 at scale: a float32 ops.sort (S1 with values on the total-order keys,
+    # K4's wide rounds, a gather) and an int32 ops.sort_kv with int32 values,
+    # each against a stable torch.sort
+    fkeys = torch.randn(n1, generator=gen, device=device) * 1000
+    kv_keys = shuffled("dups", torch.int32)
+    kv_vals = torch.randint(-(2**31), 2**31 - 1, (n1,), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    got = launched(km.sort_round_kv, lambda: launched(km.sort_tiles_kv, lambda: ops.sort(fkeys, tile=tile, leaf=leaf), 1),
+                   len(widths))
+    bit_err(got, torch.sort(fkeys, stable=True).values, f"ops.sort float32 2^{log2n}")
+    got = launched(km.sort_round_kv, lambda: launched(km.sort_tiles_kv, lambda: ops.sort_kv(kv_keys, kv_vals, tile=tile, leaf=leaf), 1),
+                   len(widths))
+    want_k, perm = torch.sort(kv_keys, stable=True)
+    for g, w, part in zip(got, (want_k, kv_vals[perm]), ("keys", "values")):
+        bit_err(g, w, f"ops.sort_kv int32 2^{log2n} {part}")
 
     # S1: every family, both key dtypes, keys alone and with values, chunks
     # 128 ... 512 at one chunk, 2^16 and 2^log2n keys; against the plain
@@ -658,6 +692,27 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     print(f"  ops.sort 2^{log2n} split: tile sort {r['ms']:.5f} ms, {len(rounds)} wide rounds "
           f"{out['sort_round']['ms']:.5f} ms, the rest (padding, tail, slicing, dispatch) "
           f"{sort_ms - r['ms'] - out['sort_round']['ms']:.5f} ms of {sort_ms:.5f} ms")
+    # K4 at scale: the float32 ops.sort and the int32 ops.sort_kv of 2^log2n,
+    # each split into S1 with values, K4's wide rounds (on the keys and values
+    # each round is handed) and the rest, beside a stable torch.sort
+    fidx = torch.arange(n1, dtype=torch.int32, device=device)
+    for what, call, library, k, v in (
+        (f"ops.sort float32 2^{log2n}", lambda: ops.sort(fkeys, tile=tile, leaf=leaf),
+         lambda: torch.sort(fkeys, stable=True), total_order_keys(fkeys), fidx),
+        (f"ops.sort_kv int32 2^{log2n}", lambda: ops.sort_kv(kv_keys, kv_vals, tile=tile, leaf=leaf),
+         lambda: kv_vals[torch.sort(kv_keys, stable=True).indices], kv_keys, kv_vals),
+    ):
+        whole_ms = time_ms(call, iters=5)
+        tiles_ms = time_ms(lambda: km.sort_tiles_kv(k, v, chunk))
+        k4 = []
+        for w in widths:
+            kf, vf = round_inputs(k, w, v)
+            k4.append(time_ms(lambda: km.sort_round_kv(kf, vf, w, tile=tile, leaf=leaf)))
+        k4_bound = len(widths) * round_bound(n1, 4)["ms"]
+        print(f"  {what} split: S1 kv {tiles_ms:.5f} ms, {len(k4)} K4 wide rounds {sum(k4):.5f} ms (bound "
+              f"{k4_bound:.6f}; per round {', '.join(f'{t:.5f}' for t in k4)}), the rest "
+              f"{whole_ms - tiles_ms - sum(k4):.5f} ms of {whole_ms:.5f} ms; stable torch.sort "
+              f"{time_ms(library, iters=5):.5f} ms")
     return out
 
 
@@ -737,10 +792,11 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     Wide rows ``(bsz, 2^log2n) + (bsz, 2^log2n)``; ragged lengths from the
     seed with edge rows; a shape whose rows do not fill their last tile;
     rows that fit one tile (the core path); a (T, S) sweep; the benchmark's
-    own small-row shapes; K5 and K7 at the edges of their row span
-    (``MERGE_ROWS_SPAN``: totals around it, rows that start off a 16-byte
-    boundary, views, lopsided and disjoint rows, ragged totals on a seam)
-    and ``ops.merge_k`` at k = 3 and 6 over odd run widths;
+    own small-row shapes; K5-K8 at the edges of their row spans
+    (``MERGE_ROWS_SPAN``, ``MERGE_ROWS_KV_SPAN``: totals around each, rows
+    that start off a 16-byte boundary, views, 2-byte keys with 4-byte
+    values, lopsided and disjoint rows, ragged totals on a seam, unsorted
+    rows) and ``ops.merge_k`` at k = 3 and 6 over odd run widths;
     ``ops.merge_k`` on k = 8 runs of ``2^log2_run``,
     on the sample sort's combine (an ``(8, 2^(log2_run + 1))`` stack with
     lengths around ``2^(log2_run - 3)``) and on k = 5; the ragged top-k at
@@ -787,6 +843,13 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
         vals = vals.view(torch.float32) if floating else vals
         return vals[:, :na].contiguous(), vals[:, na:].contiguous()
 
+    def kv_vs_torch_sort(what, got_kv, got_rkv, a, b, aj, bj, al, bl, av, bv):
+        """K6's and K8's results on integer keys against a stable row-wise ``torch.sort``."""
+        for g, w, part in zip((*got_kv, *got_rkv), (*sorted_merge_rows(a, b, None, None, av, bv),
+                                                    *sorted_merge_rows(aj, bj, al, bl, av, bv)),
+                              ("kv keys", "kv values", "ragged kv keys", "ragged kv values")):
+            bit_err(g, w, f"{what} {part} vs torch.sort")
+
     def merge_cases(na, nb, families, rows=bsz, kw=None):
         """K5 and K7 over ``families`` of (dtype, kind); K6 and K8 over the
         int32 and float32 ones, with values that name their source slot."""
@@ -804,13 +867,10 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
             if dtype not in (torch.int32, torch.float32):
                 continue
             av, bv = arange_values(rows, na, nb, dtype.is_floating_point)
-            ko, vo = run("merge_kv_batched", (a, av, b, bv), what, kw)
-            kr, vr = run("merge_kv_batched_ragged", (aj, av, bj, bv, al, bl), what, kw)
+            got_kv = run("merge_kv_batched", (a, av, b, bv), what, kw)
+            got_rkv = run("merge_kv_batched_ragged", (aj, av, bj, bv, al, bl), what, kw)
             if not dtype.is_floating_point:
-                for g, w, part in zip((ko, vo, kr, vr), (*sorted_merge_rows(a, b, None, None, av, bv),
-                                                         *sorted_merge_rows(aj, bj, al, bl, av, bv)),
-                                      ("kv keys", "kv values", "ragged kv keys", "ragged kv values")):
-                    bit_err(g, w, f"{what} {part} vs torch.sort")
+                kv_vs_torch_sort(what, got_kv, got_rkv, a, b, aj, bj, al, bl, av, bv)
 
     # wide rows: every key dtype, adversarial families; then a short last tile
     merge_cases(n1, n1, [(torch.float32, "random"), (torch.float32, "signed_zeros"), (torch.float32, "sentinel"),
@@ -829,18 +889,27 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
     rag_al, rag_bl = (torch.randint(0, 4097, (64,), generator=gen, device=device).to(torch.int32) for _ in range(2))
     run("merge_batched_ragged", (rag_a, rag_b, rag_al, rag_bl), "(64, 4096+4096)")
 
-    # K5 and K7 at the edges of the row span merge (a block writes
-    # MERGE_ROWS_SPAN outputs of one row and reads exactly its two windows):
-    # totals around one span and one between the tile and the span; row
-    # widths that are no multiple of 16 bytes, so that output rows start off
-    # a 16-byte boundary; views that start off one; lopsided and disjoint
-    # rows; ragged rows of 0/0, 0/full, full/0 and totals that end on a seam
-    span = km.MERGE_ROWS_SPAN
+    # K5-K8 at the edges of the row span merge (a block writes
+    # MERGE_ROWS_SPAN outputs of one row, K6 and K8 MERGE_ROWS_KV_SPAN, and
+    # reads exactly its two windows): totals around one span and one between
+    # the tile and the span; row widths that are no multiple of 16 bytes, so
+    # that output rows start off a 16-byte boundary (2-byte keys and their
+    # 4-byte values at different offsets); views that start off one;
+    # lopsided and disjoint rows; ragged rows of 0/0, 0/full, full/0 and
+    # totals that end on a seam
+    def slot_values(rows, na, nb, offs, floating):
+        """Value views with the keys' row strides and offsets, each value
+        naming its source slot (float keys: float32 values of the same bits)."""
+        wa, wb = offs[0] + na, offs[1] + nb
+        vals = torch.arange(rows * (wa + wb), dtype=torch.int32, device=device).view(rows, wa + wb)
+        vals = vals.view(torch.float32) if floating else vals
+        return vals[:, :wa].contiguous()[:, offs[0]:], vals[:, wa:].contiguous()[:, offs[1]:]
 
     def edge_case(what, na, nb, dtypes=(torch.int32, torch.int16), kind="dups", offs=(0, 0), rows=4, lens=None):
-        """K5 and K7 on rows ``a[:, offs[0]:]`` and ``b[:, offs[1]:]`` of
-        contiguous buffers; integers also against a stable row-wise
-        ``torch.sort``.  ``lens`` replaces the first rows' ragged lengths."""
+        """K5-K8 on rows ``a[:, offs[0]:]`` and ``b[:, offs[1]:]`` of
+        contiguous buffers, K6 and K8 with values that name their slot;
+        integers also against a stable row-wise ``torch.sort``.  ``lens``
+        replaces the first rows' ragged lengths."""
         for dtype in dtypes:
             fa = sorted_side(kind, offs[0] + na, dtype, gen, device, rows)
             fb = sorted_side(kind, offs[1] + nb, dtype, gen, device, rows)
@@ -850,41 +919,56 @@ def phase_batched(device: str = "cuda", log2n: int = 18, bsz: int = 64, log2_run
             a, b = fa[:, offs[0]:], fb[:, offs[1]:]
             aj = torch.cat([fa[:, :offs[0]], junk_tails(a, al, gen)], 1)[:, offs[0]:]
             bj = torch.cat([fb[:, :offs[1]], junk_tails(b, bl, gen)], 1)[:, offs[1]:]
+            av, bv = slot_values(rows, na, nb, offs, dtype.is_floating_point)
             label = f"{what} {dtype} ({rows}, {na}+{nb}) at offsets {offs}"
             got = run("merge_batched", (a, b), label)[0]
             got_r = run("merge_batched_ragged", (aj, bj, al, bl), label)[0]
+            got_kv = run("merge_kv_batched", (a, av, b, bv), label)
+            got_rkv = run("merge_kv_batched_ragged", (aj, av, bj, bv, al, bl), label)
             if not dtype.is_floating_point:
                 bit_err(got, sorted_merge_rows(a, b), f"merge_batched {label} vs torch.sort")
                 bit_err(got_r, sorted_merge_rows(aj, bj, al, bl), f"merge_batched_ragged {label} vs torch.sort")
+                kv_vs_torch_sort(label, got_kv, got_rkv, a, b, aj, bj, al, bl, av, bv)
 
-    edge_case("total span - 1", span // 2, span // 2 - 1)
-    edge_case("total span", span // 2, span // 2, dtypes=(torch.int32, torch.float32))
-    edge_case("total span + 1", span // 2 + 1, span // 2)
-    edge_case("total between tile and span", (tile + span) // 6, (tile + span) // 3, dtypes=(torch.int16, torch.bfloat16))
-    edge_case("odd width", 3 * span // 2 + 1, span + 2, dtypes=(torch.int32, torch.int16, torch.float32))
+    for span in sorted({km.MERGE_ROWS_SPAN, km.MERGE_ROWS_KV_SPAN}):
+        edge_case(f"span {span}: total span - 1", span // 2, span // 2 - 1)
+        edge_case(f"span {span}: total span", span // 2, span // 2, dtypes=(torch.int32, torch.float32))
+        edge_case(f"span {span}: total span + 1", span // 2 + 1, span // 2)
+        edge_case(f"span {span}: total between tile and span", (tile + span) // 6, (tile + span) // 3,
+                  dtypes=(torch.int16, torch.bfloat16))
+        edge_case(f"span {span}: odd width", 3 * span // 2 + 1, span + 2, dtypes=(torch.int32, torch.int16, torch.float32))
+        edge_case(f"span {span}: views", 2 * span + 5, span - 3, offs=(1, 3), dtypes=(torch.int32, torch.int16, torch.float32))
+        edge_case(f"span {span}: ragged seams", 2 * span + 3, 2 * span + 1,
+                  lens=[(0, 0), (0, 2 * span + 1), (2 * span + 3, 0), (span - 5, 5), (span + 7, span - 7)], rows=6)
     edge_case("width 2 mod 8", n1 // 4 + 1, n1 // 4 + 1, dtypes=(torch.int16, torch.bfloat16))
-    edge_case("views", 2 * span + 5, span - 3, offs=(1, 3), dtypes=(torch.int32, torch.int16, torch.float32))
-    edge_case("views, wide", n1, n1, offs=(1, 3), kind="random", dtypes=(torch.float32,))
+    edge_case("views, wide", n1, n1, offs=(1, 3), kind="random", dtypes=(torch.float32, torch.int16))
     edge_case("lopsided (1, n)", 1, n1, kind="random")
     edge_case("lopsided (n, 1)", n1, 1, kind="random")
-    edge_case("ragged seams", 2 * span + 3, 2 * span + 1,
-              lens=[(0, 0), (0, 2 * span + 1), (2 * span + 3, 0), (span - 5, 5), (span + 7, span - 7)], rows=6)
     low_high = sorted_side("random", 2 * n1, torch.int32, gen, device, 4)
+    slots = torch.arange(4 * 2 * n1, dtype=torch.int32, device=device).view(4, 2 * n1)  # the keys' row strides
+    av, bv = slots[:, :n1], slots[:, n1:]
     for what, (a, b) in (("A below B", (low_high[:, :n1], low_high[:, n1:])), ("A above B", (low_high[:, n1:], low_high[:, :n1]))):
         al, bl = ragged_lens(4, n1, n1, gen, device)
         got = run("merge_batched", (a, b), f"disjoint, {what}")[0]
         got_r = run("merge_batched_ragged", (a, b, al, bl), f"disjoint, {what}")[0]
+        got_kv = run("merge_kv_batched", (a, av, b, bv), f"disjoint, {what}")
+        got_rkv = run("merge_kv_batched_ragged", (a, av, b, bv, al, bl), f"disjoint, {what}")
         bit_err(got, sorted_merge_rows(a, b), f"merge_batched disjoint, {what} vs torch.sort")
         bit_err(got_r, sorted_merge_rows(a, b, al, bl), f"merge_batched_ragged disjoint, {what} vs torch.sort")
-    # unsorted rows, likewise: K5 and K7 stay inside their buffers
+        kv_vs_torch_sort(f"disjoint, {what}", got_kv, got_rkv, a, b, a, b, al, bl, av, bv)
+    # unsorted rows, likewise: K5-K8 stay inside their buffers
     noise = torch.randint(-1000, 1000, (4, 2 * n1), generator=gen, device=device, dtype=torch.int32)
     full = torch.full((4,), n1, dtype=torch.int32, device=device)
     for name, args in (("merge_batched", (noise[:, :n1], noise[:, n1:])),
-                       ("merge_batched_ragged", (noise[:, :n1], noise[:, n1:], full, full))):
+                       ("merge_batched_ragged", (noise[:, :n1], noise[:, n1:], full, full)),
+                       ("merge_kv_batched", (noise[:, :n1], av, noise[:, n1:], bv)),
+                       ("merge_kv_batched_ragged", (noise[:, :n1], av, noise[:, n1:], bv, full, full))):
         before = fns[name].launches
         got = fns[name](*args, tile=tile, leaf=leaf)
-        int(got.long().sum())  # waits for the kernel: a fault raises here
-        check(fns[name].launches - before == int(on_card) and got.shape == (4, 2 * n1), f"{name} of unsorted rows")
+        for g in got if isinstance(got, tuple) else (got,):
+            int(g.long().sum())  # waits for the kernel: a fault raises here
+            check(g.shape == (4, 2 * n1), f"{name} of unsorted rows: shape")
+        check(fns[name].launches - before == int(on_card), f"{name} of unsorted rows: launches")
     # merge_k over odd run widths: k = 3 (2 rounds) and k = 6 (3 rounds)
     for k, width in ((3, 3 * span // 2 + 1), (6, span + 3)):
         lens = torch.randint(0, width + 1, (k,), generator=gen, device=device).to(torch.int32)
@@ -1857,17 +1941,11 @@ def merge_registers(built: dict) -> str:
     rows = []
     for kernel, used, spills in ptxas_kernels(log):
         span = re.search("merge_span_kernel" + key, kernel)  # K1, K2
-        row_span = re.search("merge_rows_span_kernel" + key, kernel)  # K5, K7
-        tiled = re.search("merge_rows_kernel" + key + "Lb([01])E", kernel)  # K6, K8
-        m = span or row_span or tiled
+        row_span = re.search("merge_rows_span_kernel" + key + "Lb([01])E", kernel)  # K5-K8
+        m = span or row_span
         if not m:
             continue
-        if span:
-            label = f"K{1 + int(m.group(2))}"
-        elif row_span:
-            label = f"K{5 + 2 * int(m.group(2))}"
-        else:
-            label = f"K{5 + int(m.group(2)) + 2 * int(m.group(3))}"
+        label = f"K{1 + int(m.group(2))}" if span else f"K{5 + int(m.group(2)) + 2 * int(m.group(3))}"
         regs = re.search(r"Used (\d+) registers", used).group(1)
         spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
         rows.append((label, list(dtypes).index(m.group(1)), f"{label} {dtypes[m.group(1)]} {regs} registers {spill} B spill"))

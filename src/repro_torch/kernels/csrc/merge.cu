@@ -8,11 +8,10 @@
 // ::_merge_batched_kernel (merge_batched_pallas, K5) and
 // ::_merge_batched_ragged_kernel (merge_batched_ragged_pallas, K7), with the
 // start tables of _prepare_batched{,_ragged}, the host-side masking of the
-// ragged tails (_mask_rows) and the host-side padding of every row (K5 and
-// K7 on the same segment merge, per row); and ::_merge_kv_batched_kernel
-// (merge_kv_batched_pallas, K6) and ::_merge_kv_batched_ragged_kernel
-// (merge_kv_batched_ragged_pallas, K8), likewise (K6 and K8 on the tile body
-// of merge_tile.cuh).
+// ragged tails (_mask_rows) and the host-side padding of every row; and
+// ::_merge_kv_batched_kernel (merge_kv_batched_pallas, K6) and
+// ::_merge_kv_batched_ragged_kernel (merge_kv_batched_ragged_pallas, K8),
+// likewise (K5-K8 on the same segment merge, per row).
 //
 // K1/K2 (merge_span_kernel): what bounds them is memory.  K1 reads n = na +
 // nb keys and writes n: 2 * n * sizeof(K) bytes, 0.080 ms for 2 x 2^24
@@ -41,38 +40,31 @@
 // `tile` and `leaf` are the reference's and do not change a bit of the
 // stable merge's one output, so the kernel ignores them.
 //
-// K5/K7 (merge_rows_span_kernel<K, kRagged>): K1's block over rows, the
-// paper's Segmented Parallel Merge applied per row.  The grid has B *
-// cdiv(na + nb, kRowsSpan) blocks, (row, span) linearised over blockIdx.x,
-// since gridDim.y stops at 65535.  Row r merges la = na and lb = nb keys
-// (K5), or, ragged (K7), la = clamp(a_lens[r], 0, na) and lb likewise.  A
-// block covers outputs o0 .. o0 + n_out of its row, n_out = min(na + nb -
-// o0, kRowsSpan), and merges the first n_valid = clamp(la + lb - o0, 0,
-// n_out) of them as K1 does, over (a + r * a_stride, la, b + r * b_stride,
-// lb): the two searches by warps 0 and 1, exactly its two windows staged
-// (never past la or lb, so a tail is never read, whatever it holds), one
-// co-rank and kRowsE outputs a thread.  The slots after n_valid are
-// sentinels (+inf for floats, the largest int); a block with n_valid = 0,
-// most of the blocks of merge_k's combine, only stores them.  Rows are read
-// at strides a_stride and b_stride (elements) and at any element offset, so
-// the k-way tournament reads the even and odd rows of the previous round in
-// place; the output rows start at r * out_stride, which need not be a
-// multiple of 16 bytes, so one pass of 16-byte stores covers each block's
-// aligned interior and its head and tail go element by element
-// (store_window).  Pads are excluded by index, never by comparison, so
-// real keys equal to the sentinel are data.  `tile` and `leaf` do not
-// change the output, so these kernels ignore them too.
-//
-// K6/K8 (merge_rows_kernel<K, true, kRagged>): the tile body of
-// merge_tile.cuh over rows.  The grid has B * cdiv(na + nb, T) blocks.
-// Block t of a row bisects diagonal t * T in global memory
-// (block_co_rank), stages the valid prefixes of its two T-windows, splits
-// the tile into leaves of S by Algorithm 2 and finds each output slot by a
-// co-rank inside its leaf.  Values share their keys' row stride.  A tile
-// past the row's total (d >= la + lb) writes n_out sentinel keys and zero
-// values and returns; otherwise the start search is bounded by la and lb,
-// the tile body writes min(la + lb - d, T) outputs and the block fills the
-// rest of its slots with the sentinel and zero values.
+// K5-K8 (merge_rows_span_kernel<K, kValues, kRagged>): K1's block over rows,
+// the paper's Segmented Parallel Merge applied per row; K6 and K8 carry the
+// values as K2 does.  The grid has B * cdiv(na + nb, span) blocks (span =
+// kRowsSpan for K5/K7, kRowsKvSpan for K6/K8), (row, span) linearised over
+// blockIdx.x, since gridDim.y stops at 65535.  Row r merges la = na and lb =
+// nb keys (K5, K6), or, ragged (K7, K8), la = clamp(a_lens[r], 0, na) and lb
+// likewise.  A block covers outputs o0 .. o0 + n_out of its row, n_out =
+// min(na + nb - o0, span), and merges the first n_valid = clamp(la + lb -
+// o0, 0, n_out) of them as K1 does, over (a + r * a_stride, la, b + r *
+// b_stride, lb) and the values at the same offsets (values share their keys'
+// row stride): the two searches by warps 0 and 1, exactly its two windows
+// staged (never past la or lb, so a tail is never read, whatever it holds),
+// one co-rank and span / threads outputs a thread.  The slots after n_valid
+// are sentinel keys (+inf for floats, the largest int) and zero values; a
+// block with n_valid = 0, most of the blocks of merge_k's combine, only
+// stores them.  Rows are read at strides a_stride and b_stride (elements)
+// and at any element offset, so the k-way tournament reads the even and odd
+// rows of the previous round in place; the output rows start at r *
+// out_stride, which need not be a multiple of 16 bytes (and 2-byte keys
+// with 4-byte values start at different offsets of their 16 bytes), so one
+// pass of 16-byte stores per array covers each block's aligned interior and
+// its head and tail go element by element (store_window).  Pads are
+// excluded by index, never by comparison, so real keys equal to the
+// sentinel are data.  `tile` and `leaf` do not change the output, so these
+// kernels ignore them too.
 //
 // Keys are compared with the raw `<=` of their type (int16, int32, float32,
 // bfloat16; bfloat16 through float), so -0.0 and +0.0 tie and A's comes
@@ -99,14 +91,21 @@ constexpr int kThreads = kValues ? 256 : 512;
 // Outputs per block: kernels/merge_path.py's MERGE_SPAN (K1) and MERGE_KV_SPAN (K2).
 template <bool kValues>
 constexpr int kSpan = kThreads<kValues> * kE;
-// K5/K7: threads per block and outputs per block, kernels/merge_path.py's
+// K5-K8: threads per block; K5/K7: outputs per block, kernels/merge_path.py's
 // MERGE_ROWS_SPAN.  From a sweep of 256 and 512 threads by 8 and 16 outputs
 // a thread on phase 5's row shapes (PERF.md): 256 x 16 is fastest on the
 // wide rows and on the k-way merge of full runs; 8 outputs a thread win by
 // 4-15 % on the combine, k = 5 and the small rows, which weigh less.
 constexpr int kRowsThreads = 256;
 constexpr int kRowsSpan = 4096;
-constexpr int kRowsE = kRowsSpan / kRowsThreads;
+// K6/K8: outputs per block, kernels/merge_path.py's MERGE_ROWS_KV_SPAN.
+// From a sweep of 128, 256 and 512 threads by 8 and 16 outputs a thread
+// (PERF.md): 256 x 8 is fastest on int32 keys and values at (64, 2^18) x 2,
+// ragged or not (by 1.5-2 % over 256 x 16), and on rows of 4096 (by 14 %);
+// 128 x 16 wins bfloat16 keys by 9 %.
+constexpr int kRowsKvSpan = 2048;
+template <bool kValues>
+constexpr int kRowsSpanOf = kValues ? kRowsKvSpan : kRowsSpan;
 
 // Outputs o0 .. o0 + n (n > 0) of the stable A-priority merge of a[0 : na]
 // and b[0 : nb] (and their values) into the padded buffers sk[0 : n] and
@@ -187,21 +186,25 @@ int launch(const void* a, const void* av, int64_t na, const void* b, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5/K7: one (row, span) per block; see the note at the top.
-template <typename K, bool kRagged>
+// K5-K8: one (row, span) per block; see the note at the top.
+template <typename K, bool kValues, bool kRagged>
 __global__ void __launch_bounds__(kRowsThreads)
-    merge_rows_span_kernel(const K* __restrict__ a, int64_t na, int64_t a_stride,
-                           const int32_t* __restrict__ a_lens, const K* __restrict__ b, int64_t nb,
-                           int64_t b_stride, const int32_t* __restrict__ b_lens, K* __restrict__ out,
-                           int64_t out_stride, unsigned spans_per_row) {
+    merge_rows_span_kernel(const K* __restrict__ a, const uint32_t* __restrict__ av, int64_t na,
+                           int64_t a_stride, const int32_t* __restrict__ a_lens, const K* __restrict__ b,
+                           const uint32_t* __restrict__ bv, int64_t nb, int64_t b_stride,
+                           const int32_t* __restrict__ b_lens, K* __restrict__ ok,
+                           uint32_t* __restrict__ ov, int64_t out_stride, unsigned spans_per_row) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kSpanR = kRowsSpanOf<kValues>;
+  constexpr int kER = kSpanR / kRowsThreads;  // outputs per thread
   K* const sk = reinterpret_cast<K*>(smem_raw);
+  uint32_t* const sv = reinterpret_cast<uint32_t*>(sk + repro::spad_slots<K>(kSpanR + 1));
   __shared__ int64_t win[2];
 
   // The launch keeps the grid below 2^31 blocks: 32-bit block arithmetic is exact.
   const unsigned row = blockIdx.x / spans_per_row;
-  const int64_t o0 = static_cast<int64_t>(blockIdx.x - row * spans_per_row) * kRowsSpan;
-  const int n_out = static_cast<int>(na + nb - o0 < kRowsSpan ? na + nb - o0 : kRowsSpan);
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x - row * spans_per_row) * kSpanR;
+  const int n_out = static_cast<int>(na + nb - o0 < kSpanR ? na + nb - o0 : kSpanR);
   int64_t la = na;
   int64_t lb = nb;
   if (kRagged) {
@@ -212,100 +215,44 @@ __global__ void __launch_bounds__(kRowsThreads)
   }
   const int64_t left = la + lb - o0;
   const int n_valid = left <= 0 ? 0 : (left < n_out ? static_cast<int>(left) : n_out);
+  const int64_t ra0 = static_cast<int64_t>(row) * a_stride;
+  const int64_t rb0 = static_cast<int64_t>(row) * b_stride;
   if (n_valid > 0) {  // the same for every thread of the block
-    merge_block<K, false, kRowsE>(a + static_cast<int64_t>(row) * a_stride, nullptr, la,
-                                  b + static_cast<int64_t>(row) * b_stride, nullptr, lb, o0, n_valid,
-                                  sk, nullptr, win);
+    merge_block<K, kValues, kER>(a + ra0, kValues ? av + ra0 : nullptr, la, b + rb0,
+                                 kValues ? bv + rb0 : nullptr, lb, o0, n_valid, sk, sv, win);
   }
-  repro::store_window(out + static_cast<int64_t>(row) * out_stride + o0, n_out, [&](int i) {
+  const int64_t out0 = static_cast<int64_t>(row) * out_stride + o0;
+  repro::store_window(ok + out0, n_out, [&](int i) {
     return !kRagged || i < n_valid ? sk[repro::spad<K>(i)] : repro::key_max<K>();
   });
+  if (kValues) {  // their own row alignment: 2-byte keys, 4-byte values
+    repro::store_window(ov + out0, n_out, [&](int i) {
+      return !kRagged || i < n_valid ? sv[repro::spad<uint32_t>(i)] : 0u;
+    });
+  }
 }
 
-template <typename K, bool kRagged>
-int launch_rows_span(const void* a, int64_t na, int64_t a_stride, const void* a_lens, const void* b,
-                     int64_t nb, int64_t b_stride, const void* b_lens, void* out,
-                     int64_t out_stride, int64_t rows, void* stream) {
+template <typename K, bool kValues, bool kRagged>
+int launch_rows_span(const void* a, const void* av, int64_t na, int64_t a_stride, const void* a_lens,
+                     const void* b, const void* bv, int64_t nb, int64_t b_stride, const void* b_lens,
+                     void* ok, void* ov, int64_t out_stride, int64_t rows, void* stream) {
   const int64_t n = na + nb;
   if (n == 0 || rows == 0) return 0;
-  const int64_t spans_per_row = (n + kRowsSpan - 1) / kRowsSpan;
+  constexpr int kSpanR = kRowsSpanOf<kValues>;
+  const int64_t spans_per_row = (n + kSpanR - 1) / kSpanR;
   if (rows * spans_per_row > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  constexpr size_t kSmem = repro::spad_slots<K>(kRowsSpan + 1) * sizeof(K);
-  const cudaError_t err = repro::allow_smem(merge_rows_span_kernel<K, kRagged>, kSmem);
+  constexpr size_t kSmem = repro::spad_slots<K>(kSpanR + 1) * sizeof(K) +
+                           (kValues ? repro::spad_slots<uint32_t>(kSpanR + 1) * sizeof(uint32_t) : 0);
+  const cudaError_t err = repro::allow_smem(merge_rows_span_kernel<K, kValues, kRagged>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_rows_span_kernel<K, kRagged>
+  merge_rows_span_kernel<K, kValues, kRagged>
       <<<static_cast<unsigned>(rows * spans_per_row), kRowsThreads, kSmem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const K*>(a), na, a_stride, static_cast<const int32_t*>(a_lens),
-          static_cast<const K*>(b), nb, b_stride, static_cast<const int32_t*>(b_lens),
-          static_cast<K*>(out), out_stride, static_cast<unsigned>(spans_per_row));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6/K8: one (row, tile) per block; see the note at the top.
-template <typename K, bool kValues, bool kRagged>
-__global__ void merge_rows_kernel(const K* __restrict__ a, const uint32_t* __restrict__ av,
-                                  int64_t na, int64_t a_stride, const int32_t* __restrict__ a_lens,
-                                  const K* __restrict__ b, const uint32_t* __restrict__ bv,
-                                  int64_t nb, int64_t b_stride, const int32_t* __restrict__ b_lens,
-                                  K* __restrict__ ok, uint32_t* __restrict__ ov, int64_t out_stride,
-                                  unsigned tiles_per_row, int tile, int leaf) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // The launch keeps the grid below 2^31 blocks: 32-bit block arithmetic is exact.
-  const unsigned row = blockIdx.x / tiles_per_row;
-  const int64_t t = tile;
-  const int64_t d = static_cast<int64_t>(blockIdx.x - row * tiles_per_row) * t;
-  const int n_out = static_cast<int>(na + nb - d < t ? na + nb - d : t);
-  int64_t la = na;
-  int64_t lb = nb;
-  if (kRagged) {
-    const int64_t ra = a_lens[row];
-    const int64_t rb = b_lens[row];
-    la = ra < 0 ? 0 : (ra < na ? ra : na);
-    lb = rb < 0 ? 0 : (rb < nb ? rb : nb);
-  }
-  const int64_t tot = la + lb;
-  K* orow = ok + row * out_stride + d;
-  uint32_t* ovrow = kValues ? ov + row * out_stride + d : nullptr;
-  int n_valid = 0;
-  if (d < tot) {  // the same for every thread of the block
-    const K* ar = a + row * a_stride;
-    const K* br = b + row * b_stride;
-    const int64_t a0 = repro::block_co_rank(ar, la, br, lb, d);
-    const int64_t b0 = d - a0;
-    const int va = static_cast<int>(la - a0 < t ? la - a0 : t);
-    const int vb = static_cast<int>(lb - b0 < t ? lb - b0 : t);
-    n_valid = static_cast<int>(tot - d < t ? tot - d : t);
-    repro::merge_tile<K, kValues>(ar + a0, kValues ? av + row * a_stride + a0 : nullptr, va,
-                                  br + b0, kValues ? bv + row * b_stride + b0 : nullptr, vb, orow,
-                                  ovrow, n_valid, tile, leaf, smem);
-  }
-  for (int j = n_valid + threadIdx.x; j < n_out; j += blockDim.x) {  // past the row's total
-    orow[j] = repro::key_max<K>();
-    if (kValues) ovrow[j] = 0;
-  }
-}
-
-template <typename K, bool kValues, bool kRagged>
-int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, const void* a_lens,
-                const void* b, const void* bv, int64_t nb, int64_t b_stride, const void* b_lens,
-                void* ok, void* ov, int64_t out_stride, int64_t rows, int tile, int leaf,
-                void* stream) {
-  const int64_t n = na + nb;
-  if (n == 0 || rows == 0) return 0;
-  const int64_t tiles_per_row = (n + tile - 1) / tile;
-  if (rows * tiles_per_row > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = repro::merge_tile_smem<K, kValues>(tile, leaf);
-  const cudaError_t err = repro::allow_smem(merge_rows_kernel<K, kValues, kRagged>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_rows_kernel<K, kValues, kRagged>
-      <<<static_cast<unsigned>(rows * tiles_per_row), repro::block_threads(tile), smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const K*>(a), static_cast<const uint32_t*>(av), na, a_stride,
           static_cast<const int32_t*>(a_lens), static_cast<const K*>(b),
           static_cast<const uint32_t*>(bv), nb, b_stride, static_cast<const int32_t*>(b_lens),
           static_cast<K*>(ok), static_cast<uint32_t*>(ov), out_stride,
-          static_cast<unsigned>(tiles_per_row), tile, leaf);
+          static_cast<unsigned>(spans_per_row));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,15 +277,18 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
                              int64_t rows, int tile, int leaf, void* stream) {                   \
     (void)tile;                                                                                   \
     (void)leaf;                                                                                   \
-    return launch_rows_span<K, false>(a, na, a_stride, nullptr, b, nb, b_stride, nullptr, out,    \
-                                      out_stride, rows, stream);                                  \
+    return launch_rows_span<K, false, false>(a, nullptr, na, a_stride, nullptr, b, nullptr, nb,   \
+                                             b_stride, nullptr, out, nullptr, out_stride, rows,   \
+                                             stream);                                             \
   }                                                                                               \
   int merge_kv_batched_##SUFFIX(const void* ak, const void* av, int64_t na, int64_t a_stride,    \
                                 const void* bk, const void* bv, int64_t nb, int64_t b_stride,    \
                                 void* ok, void* ov, int64_t out_stride, int64_t rows, int tile,  \
                                 int leaf, void* stream) {                                        \
-    return launch_rows<K, true, false>(ak, av, na, a_stride, nullptr, bk, bv, nb, b_stride,      \
-                                       nullptr, ok, ov, out_stride, rows, tile, leaf, stream);   \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch_rows_span<K, true, false>(ak, av, na, a_stride, nullptr, bk, bv, nb, b_stride,  \
+                                            nullptr, ok, ov, out_stride, rows, stream);           \
   }                                                                                               \
   int merge_batched_ragged_##SUFFIX(const void* a, int64_t na, int64_t a_stride,                 \
                                     const void* a_lens, const void* b, int64_t nb,               \
@@ -347,8 +297,9 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
                                     void* stream) {                                              \
     (void)tile;                                                                                   \
     (void)leaf;                                                                                   \
-    return launch_rows_span<K, true>(a, na, a_stride, a_lens, b, nb, b_stride, b_lens, out,       \
-                                     out_stride, rows, stream);                                   \
+    return launch_rows_span<K, false, true>(a, nullptr, na, a_stride, a_lens, b, nullptr, nb,     \
+                                            b_stride, b_lens, out, nullptr, out_stride, rows,     \
+                                            stream);                                              \
   }                                                                                               \
   int merge_kv_batched_ragged_##SUFFIX(const void* ak, const void* av, int64_t na,               \
                                        int64_t a_stride, const void* a_lens, const void* bk,     \
@@ -356,8 +307,10 @@ int launch_rows(const void* a, const void* av, int64_t na, int64_t a_stride, con
                                        const void* b_lens, void* ok, void* ov,                   \
                                        int64_t out_stride, int64_t rows, int tile, int leaf,     \
                                        void* stream) {                                           \
-    return launch_rows<K, true, true>(ak, av, na, a_stride, a_lens, bk, bv, nb, b_stride,        \
-                                      b_lens, ok, ov, out_stride, rows, tile, leaf, stream);     \
+    (void)tile;                                                                                   \
+    (void)leaf;                                                                                   \
+    return launch_rows_span<K, true, true>(ak, av, na, a_stride, a_lens, bk, bv, nb, b_stride,    \
+                                           b_lens, ok, ov, out_stride, rows, stream);             \
   }
 
 extern "C" {

@@ -6,7 +6,9 @@
 // per-tile start tables that _prepare and _sort_round_starts compute in a
 // separate pass.
 //
-// Every kernel built on this header writes one tile of T outputs per block:
+// K4 (sort_round_kv.cu) is the one kernel that still runs the tile body; the
+// others include this header for key_le, key_max, co_rank_warp and
+// allow_smem.  The tile body writes one tile of T outputs per block:
 //  * the block finds its own start (a0, b0) on the merge path by a
 //    warp-cooperative Algorithm 2 bisection in global memory
 //    (block_co_rank), so there is no start-table pass and no host round trip;

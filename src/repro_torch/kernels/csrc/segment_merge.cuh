@@ -1,6 +1,6 @@
 // The paper's per-thread segment merge in shared memory, for Hopper (sm_90a).
 //
-// Shared by the 1-D merges K1 and K2 and the row merges K5 and K7
+// Shared by the 1-D merges K1 and K2 and the row merges K5-K8
 // (merge.cu), K3's wide sort round (sort_round.cu) and the tile sort S1
 // (sort_tiles.cu), over keys of 2 or 4 bytes (int16, int32, float32,
 // bfloat16: key_le of merge_tile.cuh) and 32-bit values.  Each thread owns

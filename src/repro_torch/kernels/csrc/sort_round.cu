@@ -72,7 +72,10 @@ __global__ void __launch_bounds__(kThreads)
       if ((threadIdx.x & 31) == 0) win[warp] = r;
     }
     __syncthreads();
-    const int wa = static_cast<int>(win[1] - win[0]);
+    // Sorted runs give 0 <= wa <= span; the clamp keeps unsorted ones (whose
+    // merge is unspecified) inside the buffer.
+    const int64_t wa64 = win[1] - win[0];
+    const int wa = static_cast<int>(wa64 < 0 ? 0 : (wa64 < span ? wa64 : span));
     stage_window(s, 0, kf, base + win[0], wa, n_total);
     stage_window(s, wa, kf, base + width + (dg - win[0]), span - wa, n_total);
     a0 = 0;

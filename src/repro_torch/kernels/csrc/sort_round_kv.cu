@@ -4,7 +4,7 @@
 // by sort_round_kv_pallas, together with the tile body it runs
 // (_hier_merge_window) and the start table of _sort_round_starts.  The
 // kernel itself, sort_round_kernel<K, true>, and the tile body live in
-// merge_tile.cuh, shared with K6 and K8.
+// merge_tile.cuh, which no other kernel runs.
 //
 // Layout, as in the reference: one flat buffer of m + T elements.  The m
 // data elements hold sorted runs of `width`; the last T are sentinel keys

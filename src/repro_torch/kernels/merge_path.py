@@ -19,8 +19,8 @@ The counterparts of the reference's Pallas entry points
   ``B`` independent row merges, the ragged ones with per-row valid
   lengths, ``csrc/merge.cu``.
 
-K1, K2, K3, S1, K5 and K7 share the per-thread segment merge of
-``csrc/segment_merge.cuh``; K4, K6 and K8 share the tile body of
+K1, K2, K3, S1 and K5-K8 share the per-thread segment merge of
+``csrc/segment_merge.cuh``; K4 runs the tile body of
 ``csrc/merge_tile.cuh``.  A sort keeps one
 flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
 ``width``, then ``tile`` sentinel keys (with zero values).  One round
@@ -49,14 +49,15 @@ from .ref import sort_kv_ref, sort_ref
 
 DEFAULT_TILE = 512
 DEFAULT_LEAF = 32
-MAX_TILE = 4096  # K6's windows at 4-byte keys: 64 KB of shared memory
+MAX_TILE = 4096  # K4's windows at 4-byte keys and values: 64 KB of shared memory
 # Outputs per block of K1 and of K2, whatever the tile: kSpan<false> and
 # kSpan<true> in csrc/merge.cu, which must agree.
 MERGE_SPAN = 8192
 MERGE_KV_SPAN = 4096
-# Outputs per block of each row of K5 and K7, whatever the tile: kRowsSpan in
-# csrc/merge.cu, which must agree.
+# Outputs per block of each row of K5 and K7, and of K6 and K8, whatever the
+# tile: kRowsSpan and kRowsKvSpan in csrc/merge.cu, which must agree.
 MERGE_ROWS_SPAN = 4096
+MERGE_ROWS_KV_SPAN = 2048
 KEY_DTYPES = (torch.int16, torch.int32)
 MERGE_KEY_DTYPES = (torch.int16, torch.int32, torch.float32, torch.bfloat16)
 MERGE_VALUE_DTYPES = (torch.int32, torch.float32)
@@ -540,10 +541,12 @@ def merge_kv_batched(
     """Stable key-value merge of ``B`` pairs of sorted rows (K6).
 
     Keys as in :func:`merge_batched`; values int32 or float32, one dtype,
-    with their keys' shapes and row strides.  Returns the merged ``(keys,
-    values)``.  A CUDA tensor launches the kernel (counted in
-    ``merge_kv_batched.launches``); a CPU tensor takes
-    :func:`merge_kv_batched_ref`.
+    with their keys' shapes and row strides (each array may start at any
+    element).  Returns the merged ``(keys, values)``.  A CUDA tensor
+    launches the kernel (counted in ``merge_kv_batched.launches``): K2's
+    segment merge per row, :data:`MERGE_ROWS_KV_SPAN` outputs of a row per
+    block, whatever ``tile`` and ``leaf`` (checked, and kept for the
+    reference's signature); a CPU tensor takes :func:`merge_kv_batched_ref`.
     """
     _check_row_values("merge_kv_batched", ak, av, bk, bv, tile)
     if not _on_card("merge_kv_batched", ak):
@@ -625,9 +628,11 @@ def merge_kv_batched_ragged(
     """Ragged stable key-value merge of ``B`` pairs of rows (K8).
 
     Operands as in :func:`merge_kv_batched`, lengths as in
-    :func:`merge_batched_ragged`.  Past each row's merged length the keys
-    are sentinel and the values zero.  A CUDA tensor launches the kernel
-    (counted in ``merge_kv_batched_ragged.launches``); a CPU tensor takes
+    :func:`merge_batched_ragged` (clamped by the kernel, which never reads
+    past them).  Past each row's merged length the keys are sentinel and
+    the values zero.  A CUDA tensor launches the kernel (counted in
+    ``merge_kv_batched_ragged.launches``), blocked as
+    :func:`merge_kv_batched`'s; a CPU tensor takes
     :func:`merge_kv_batched_ragged_ref`.
     """
     _check_row_values("merge_kv_batched_ragged", ak, av, bk, bv, tile)

@@ -182,6 +182,75 @@ def test_merge_batched_disjoint_rows_match_reference(a_first):
     same(km.merge_batched(ta, tb, tile=TILE, leaf=LEAF), want)
 
 
+_core_merge_kv = jax.jit(jax_bat.merge_kv_batched)
+KV_SPAN = km.MERGE_ROWS_KV_SPAN
+# K6's edges: (name, na, nb, key dtype, value dtype, view offsets into each
+# row's buffer, the values' too); 2-byte keys put their values' rows at other
+# offsets of 16 bytes than their own
+_KV_EDGES = [
+    ("total span - 1", KV_SPAN // 2, KV_SPAN // 2 - 1, np.int32, np.int32, (0, 0)),
+    ("total span", KV_SPAN // 2, KV_SPAN // 2, np.float32, np.float32, (0, 0)),
+    ("total span + 1, 2-byte keys", KV_SPAN // 2 + 1, KV_SPAN // 2, np.int16, np.int32, (0, 0)),
+    ("total between tile and span", (TILE + KV_SPAN) // 6, (TILE + KV_SPAN) // 3, BF16, np.float32, (0, 0)),
+    ("odd widths, views, 2-byte keys", 37, 26, np.int16, np.int32, (1, 3)),
+    ("width 2 mod 8, views, bfloat16 keys", 41, 41, BF16, np.float32, (1, 3)),
+    ("wide odd views", KV_SPAN + 5, KV_SPAN // 2 - 3, np.int32, np.float32, (1, 3)),
+    ("lopsided (1, n)", 1, 300, np.float32, np.int32, (0, 0)),
+    ("lopsided (n, 1)", 300, 1, np.int16, np.int32, (0, 0)),
+]
+
+
+@pytest.mark.parametrize("name,na,nb,dk,dv,offs", _KV_EDGES, ids=[e[0] for e in _KV_EDGES])
+def test_merge_kv_batched_edges_match_reference(name, na, nb, dk, dv, offs):
+    """K6 at the edges of its row span, keys and values on views at any
+    element offset; every value names its source slot."""
+    rng = np.random.default_rng(16)
+    ak, bk = sorted_rows(dk, na, rng, rows=3), sorted_rows(dk, nb, rng, rows=3)
+    vals = np.arange(3 * (na + nb)).reshape(3, na + nb).astype(dv)
+    av, bv = vals[:, :na], vals[:, na:]
+    args = [jnp.asarray(x) for x in (ak, av, bk, bv)]
+    if na + nb <= 128:
+        (wk, wv), (pk, pv) = _both_merge_kv(*args)
+        same(pk, wk)
+        same(pv, wv)
+    else:
+        wk, wv = _core_merge_kv(*args)
+    targs = [row_views(x, off) for x, off in zip((ak, av, bk, bv), (offs[0], offs[0], offs[1], offs[1]))]
+    assert targs[1].stride(0) == targs[0].stride(0) == na + offs[0]
+    before = km.merge_kv_batched.launches
+    for gk, gv in (ops.merge_kv_batched(*targs, tile=TILE, leaf=LEAF), km.merge_kv_batched(*targs, tile=TILE, leaf=LEAF),
+                   km.merge_kv_batched_ref(*targs)):
+        same(gk, wk)
+        same(gv, wv)
+    assert km.merge_kv_batched.launches == before
+
+
+@pytest.mark.parametrize("a_first", [True, False])
+def test_merge_kv_batched_disjoint_rows_match_reference(a_first):
+    """K6 with every key of one side below every key of the other."""
+    rng = np.random.default_rng(17)
+    low_high = np.sort(rng.integers(-10**6, 10**6, (3, 2 * 700)), axis=1).astype(np.int32)
+    slots = np.arange(3 * 2 * 700, dtype=np.int32).reshape(3, 2 * 700)
+    halves = [(low_high[:, :700], slots[:, :700]), (low_high[:, 700:], slots[:, 700:])]
+    (ak, av), (bk, bv) = halves if a_first else halves[::-1]
+    wk, wv = _core_merge_kv(*(jnp.asarray(x) for x in (ak, av, bk, bv)))
+    tk, tv = torch.from_numpy(low_high), torch.from_numpy(slots)
+    t_halves = [(tk[:, :700], tv[:, :700]), (tk[:, 700:], tv[:, 700:])]
+    (tak, tav), (tbk, tbv) = t_halves if a_first else t_halves[::-1]
+    for gk, gv in (ops.merge_kv_batched(tak, tav, tbk, tbv, tile=TILE, leaf=LEAF),
+                   km.merge_kv_batched(tak, tav, tbk, tbv, tile=TILE, leaf=LEAF)):
+        same(gk, wk)
+        same(gv, wv)
+
+
+def test_rows_kv_span_matches_the_kernel_source():
+    """``MERGE_ROWS_KV_SPAN`` is K6's and K8's outputs per block in ``merge.cu``."""
+    src = (Path(km.__file__).parent / "csrc" / "merge.cu").read_text()
+    span = int(re.search(r"constexpr int kRowsKvSpan = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int kRowsThreads = (\d+);", src).group(1))
+    assert span == km.MERGE_ROWS_KV_SPAN and span % threads == 0
+
+
 def test_rows_span_matches_the_kernel_source():
     """``MERGE_ROWS_SPAN`` is K5's and K7's outputs per block in ``merge.cu``."""
     src = (Path(km.__file__).parent / "csrc" / "merge.cu").read_text()

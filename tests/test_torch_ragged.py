@@ -147,6 +147,53 @@ def test_merge_batched_ragged_edges_match_reference(name, na, nb, dtype, offs, l
     assert km.merge_batched_ragged.launches == before
 
 
+KV_SPAN = km.MERGE_ROWS_KV_SPAN
+# K8's edges: (name, na, nb, key dtype, value dtype, view offsets of keys and
+# values, the rows' lengths); 2-byte keys put their values' rows at other
+# offsets of 16 bytes than their own
+_KV_EDGES = [
+    ("odd widths, views, 2-byte keys", 37, 26, np.int16, np.int32, (1, 3),
+     [(0, 0), (0, 26), (37, 0), (20, 11), (37, 26)]),
+    ("width 2 mod 8, views, bfloat16 keys", 41, 41, BF16, np.float32, (1, 3),
+     [(0, 0), (0, 41), (41, 0), (41, 41), (7, 60)]),
+    ("seams, views", KV_SPAN + 3, KV_SPAN + 1, np.int32, np.int32, (1, 3),
+     [(0, 0), (0, KV_SPAN + 1), (KV_SPAN + 3, 0), (KV_SPAN - 5, 5), (KV_SPAN + 7, KV_SPAN - 7), (KV_SPAN, 1)]),
+    ("seams, 2-byte keys", KV_SPAN // 2 + 1, KV_SPAN // 2, np.int16, np.float32, (0, 0),
+     [(0, 0), (KV_SPAN // 2 + 1, KV_SPAN // 2), (KV_SPAN // 2, KV_SPAN // 2), (KV_SPAN // 2, KV_SPAN // 2 - 1)]),
+    ("lopsided", 1, 300, np.float32, np.float32, (0, 0), [(1, 300), (0, 300), (1, 0), (1, 17)]),
+]
+
+
+@pytest.mark.parametrize("name,na,nb,dk,dv,offs,lens", _KV_EDGES, ids=[e[0] for e in _KV_EDGES])
+def test_merge_kv_batched_ragged_edges_match_reference(name, na, nb, dk, dv, offs, lens):
+    """K8 at the edges of its row span, keys and values on views at any
+    element offset, junk tails; every value names its source slot; rows
+    past a few thousand elements against the JAX core alone."""
+    rng = np.random.default_rng(28)
+    al, bl = (np.array(x, np.int32) for x in zip(*lens))
+    ak, bk = ragged_rows(dk, na, al, rng), ragged_rows(dk, nb, bl, rng)
+    vals = np.arange(len(lens) * (na + nb)).reshape(len(lens), na + nb).astype(dv)
+    av, bv = vals[:, :na], vals[:, na:]
+    args = [jnp.asarray(x) for x in (ak, av, bk, bv, al, bl)]
+    if na + nb <= 128:
+        (wk, wv), (pk, pv) = _both_ragged_kv(*args)
+        same(pk, wk)
+        same(pv, wv)
+    else:
+        wk, wv = jax.jit(jax_core.merge_kv_batched_ragged)(*args)
+    views = []
+    for x, off in zip((ak, av, bk, bv), (offs[0], offs[0], offs[1], offs[1])):
+        full = to_torch(np.concatenate([np.zeros((x.shape[0], off), x.dtype), x], axis=1))
+        views.append(full[:, off:])
+    targs = [*views, to_torch(al), to_torch(bl)]
+    before = km.merge_kv_batched_ragged.launches
+    for gk, gv in (ops.merge_kv_batched_ragged(*targs, tile=TILE, leaf=LEAF),
+                   km.merge_kv_batched_ragged(*targs, tile=TILE, leaf=LEAF), km.merge_kv_batched_ragged_ref(*targs)):
+        same(gk, wk)
+        same(gv, wv)
+    assert km.merge_kv_batched_ragged.launches == before
+
+
 def test_diagonal_intersections_ragged_matches_reference():
     rng = np.random.default_rng(23)
     a, b = ragged_rows(np.int32, NA, A_LENS, rng), ragged_rows(np.int32, NB, B_LENS, rng)

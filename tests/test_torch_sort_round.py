@@ -1,4 +1,5 @@
-"""K4's plain version against the JAX Pallas round, bit for bit.
+"""K4's plain version against the JAX Pallas round, bit for bit; K3 on
+unsorted runs.
 
 The JAX side runs ``sort_round_kv_pallas`` in interpret mode, as the JAX
 package's own tests do on the CPU.  The port's CUDA kernel is not built
@@ -6,6 +7,9 @@ here: on a CPU tensor ``sort_round_kv`` takes its plain version, which is
 what these tests hold against the reference.  ``chip_smoke.py`` holds the
 kernel against the same plain version on the card.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +102,30 @@ def test_sort_round_kv_has_no_fallback_off_the_cpu():
     vf = torch.zeros(M + TILE, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         km.sort_round_kv(kf, vf, 64, tile=TILE)
+
+
+def test_sort_round_of_unsorted_runs_keeps_its_layout():
+    """Unsorted runs break K3's contract and their merge is unspecified, but
+    the round keeps its layout: ``m + T`` keys, the tail rewritten with
+    sentinels.  On the card ``chip_smoke.py`` runs the kernel on such runs
+    at a width past its span, where it must not fault."""
+    rng = np.random.default_rng(3)
+    width = 4 * TILE
+    xf = torch.from_numpy(np.concatenate([rng.integers(-1000, 1000, 4 * width), np.full(TILE, 2**31 - 1)]).astype(np.int32))
+    before = km.sort_round.launches
+    got = km.sort_round(xf, width, tile=TILE, leaf=LEAF)
+    assert km.sort_round.launches == before
+    assert got.shape == xf.shape and got.dtype == xf.dtype
+    np.testing.assert_array_equal(got[4 * width:].numpy(), np.full(TILE, 2**31 - 1, np.int32))
+    np.testing.assert_array_equal(got[: 4 * width].numpy(), np.sort(xf[: 4 * width].numpy().reshape(-1, 2 * width), axis=1).reshape(-1))
+
+
+def test_sort_round_kernel_clamps_its_window():
+    """Where a block lies inside one pair, K3 stages windows of ``wa`` and
+    ``span - wa`` keys from its two searches; on unsorted runs the searches
+    need not be monotone, so ``wa`` is clamped to ``[0, span]`` before
+    either window is staged, as ``merge_block`` clamps K1's."""
+    src = (Path(km.__file__).parent / "csrc" / "sort_round.cu").read_text()
+    inside = src[src.index("if (two_w > span)"):src.index("stage_window(s, wa,")]
+    clamp = re.search(r"const int wa = static_cast<int>\(wa64 < 0 \? 0 : \(wa64 < span \? wa64 : span\)\);", inside)
+    assert clamp and clamp.start() < inside.index("stage_window(")
