@@ -11,10 +11,13 @@ Phases (any failure raises, and the script exits non-zero):
    and what ``ptxas -v`` says of its kernels;
 3. K4 against its plain version on the card, bit for bit: every wide
    round of the sampler's sort (m = 32768 + 512, widths 512 ... 16384) on
-   int16 and int32 keys drawn from adversarial rows, then whole top-k
-   sorts at (1, 32000) and (64, 32000); with CUDA-event times of the
-   kernel, the plain version and one stable ``torch.sort`` (a yardstick the
-   port never calls); S1 with values on one sampled row's keys;
+   int16 and int32 keys drawn from adversarial rows, widths of half, one
+   and two of K4's spans over three pairs of the widest, pair widths 1 ...
+   8 at tiles 2 ... 16, every wide round of (64, 32768) int16 rows (timed
+   too), then whole top-k sorts at (1, 32000) and (64, 32000); with
+   CUDA-event times of the kernel, the plain version and one stable
+   ``torch.sort`` (a yardstick the port never calls); S1 with values on one
+   sampled row's keys;
 4. merge and sort at 2 x 2^24 elements (:func:`phase_merge_sort`): K1, K2,
    K3 and the tile sort S1 (keys alone and with values) against their plain
    versions, bit for bit, over adversarial input families, K1 and K2 also
@@ -24,10 +27,12 @@ Phases (any failure raises, and the script exits non-zero):
    driven once with the launch counts read; CUDA-event times of each
    kernel, its plain version and one PyTorch call, and of K1 for each key
    dtype; ``ops.sort`` beside one stable ``torch.sort`` and split into S1,
-   K3's rounds and the rest; K1 and K3 on unsorted inputs, which must not
-   fault; a float32 ``ops.sort`` and an int32 ``ops.sort_kv`` of 2^24
+   K3's rounds and the rest; K3 and K4 on keys (and values) one element
+   off a 16-byte boundary; K1, K3 and K4 on unsorted inputs, which must
+   not fault; a float32 ``ops.sort`` and an int32 ``ops.sort_kv`` of 2^24
    against a stable ``torch.sort``, timed beside it and split into S1 with
-   values, K4's wide rounds and the rest;
+   values, K4's wide rounds and the rest, the float sort's rest pass by
+   pass;
 5. the batched, ragged and k-way merges (:func:`phase_batched`): K5, K6,
    K7 and K8 against their plain versions, bit for bit, at (64, 2^18) +
    (64, 2^18) over every key dtype, ragged lengths with edge rows, a short
@@ -149,19 +154,20 @@ def adversarial_floats(kind: str, n: int, dtype, gen):
     raise ValueError(kind)
 
 
-def round_inputs(keys, width: int, vals=None):
-    """A flat round input: runs of ``width`` sorted stably with their values
-    (by default each key's index), then the tail."""
+def round_inputs(keys, width: int, vals=None, tile: int = TILE):
+    """A flat round input on the keys' device: runs of ``width`` sorted
+    stably with their values (by default each key's index), then the tail of
+    ``tile`` sentinel keys and zero values."""
     import torch
 
     from repro_torch.core.merge_path import max_sentinel
 
-    m = keys.shape[0]
-    vals = torch.arange(m, dtype=torch.int32, device="cuda") if vals is None else vals
+    m, dev = keys.shape[0], keys.device
+    vals = torch.arange(m, dtype=torch.int32, device=dev) if vals is None else vals
     ks, perm = torch.sort(keys.view(-1, width), dim=1, stable=True)
     vs = torch.gather(vals.view(-1, width), 1, perm)
-    kf = torch.cat([ks.reshape(-1), torch.full((TILE,), max_sentinel(keys.dtype), dtype=keys.dtype, device="cuda")])
-    vf = torch.cat([vs.reshape(-1), torch.zeros((TILE,), dtype=torch.int32, device="cuda")])
+    kf = torch.cat([ks.reshape(-1), torch.full((tile,), max_sentinel(keys.dtype), dtype=keys.dtype, device=dev)])
+    vf = torch.cat([vs.reshape(-1), torch.zeros((tile,), dtype=torch.int32, device=dev)])
     return kf, vf
 
 
@@ -171,7 +177,8 @@ def phase_k4(gen) -> dict:
     from repro_torch.core import topk_batched as core_topk
     from repro_torch.core.merge_path import flip_desc, total_order_keys
     from repro_torch.kernels import ops
-    from repro_torch.kernels.merge_path import sort_round_kv, sort_round_kv_ref, sort_tiles_kv, sort_tiles_kv_ref
+    from repro_torch.kernels.merge_path import (SORT_ROUND_KV_SPAN, sort_round_kv, sort_round_kv_ref, sort_tiles_kv,
+                                                sort_tiles_kv_ref)
 
     max_err = 0
     cases = 0
@@ -202,6 +209,26 @@ def phase_k4(gen) -> dict:
                 kf, vf = round_inputs(keys, w)
                 got = sort_round_kv(kf, vf, w, tile=TILE, leaf=LEAF)
                 compare(got, sort_round_kv_ref(kf, vf, w, tile=TILE), f"{key_dtype} {kind} width {w}")
+        # every round size the kernel's span rule tells apart (m = 2^15 ... 2^18:
+        # one to all of kE outputs a thread; at 2^18 the full span,
+        # SORT_ROUND_KV_SPAN, so widths of half, one and two spans over 32 or
+        # more pairs), every width from tile / 2, and pairs narrower than a
+        # thread's outputs (widths 1 ... 8 at tiles 2 ... 16)
+        span = SORT_ROUND_KV_SPAN
+        for kind in ("logits", "dups", "iinfo_max_runs"):
+            keys = families[kind].repeat(8)
+            for m in (1 << 15, 1 << 16, 1 << 17, 1 << 18):
+                widths = [TILE << i >> 1 for i in range((m // TILE).bit_length())]  # tile / 2 ... m / 2
+                check(m < 1 << 18 or {span // 2, span, 2 * span} <= set(widths), f"widths {widths} miss the span {span}")
+                for w in widths:
+                    kf, vf = round_inputs(keys[:m], w)
+                    compare(sort_round_kv(kf, vf, w, tile=TILE, leaf=LEAF), sort_round_kv_ref(kf, vf, w, tile=TILE),
+                            f"{key_dtype} {kind} m {m} width {w}")
+                for w in (1, 2, 4, 8):
+                    for t in (t for t in (2, 4, 8, 16) if t <= 2 * w):
+                        kf, vf = round_inputs(keys[:m], w, tile=t)
+                        compare(sort_round_kv(kf, vf, w, tile=t, leaf=LEAF), sort_round_kv_ref(kf, vf, w, tile=t),
+                                f"{key_dtype} {kind} m {m} width {w} tile {t}")
         # times on the sampler's own keys: logits in total order
         key_bytes = torch.tensor([], dtype=key_dtype).element_size()
         for w in WIDTHS:
@@ -213,6 +240,17 @@ def phase_k4(gen) -> dict:
                 "library_ms": time_ms(lambda: torch.sort(pairs, dim=1, stable=True)),
                 "bound": round_bound(M, key_bytes),
             }
+
+    # every wide round of topk_batched at batch 64: (64, 32768) int16 rows of
+    # the four logit families in total order, each key's index as its value
+    rows = torch.cat([total_order_keys(flip_desc(adversarial_floats(("logits", "all_equal", "dups", "specials")[r % 4], M,
+                                                                    torch.bfloat16, gen))) for r in range(64)])
+    batch_rounds = []
+    for w in WIDTHS:
+        kf, vf = round_inputs(rows, w)
+        compare(sort_round_kv(kf, vf, w, tile=TILE, leaf=LEAF), sort_round_kv_ref(kf, vf, w, tile=TILE),
+                f"(64, {M}) int16 rows width {w}")
+        batch_rounds.append(time_ms(lambda: sort_round_kv(kf, vf, w, tile=TILE, leaf=LEAF)))
 
     # whole sorts through the public surface: kernel path against the core path
     for bsz in (1, 64):
@@ -242,6 +280,9 @@ def phase_k4(gen) -> dict:
     for (kd, w), r in rounds.items():
         print(f"  {kd:12s} width {w:5d}: kernel_ms {r['kernel_ms']:.5f}  plain_ms {r['plain_ms']:.5f}  "
               f"library_ms {r['library_ms']:.5f}  bound_ms {r['bound']['ms']:.6f} ({r['bound']['by']})")
+    print(f"K4 (64, {M}) int16 rows, int32 values, {len(WIDTHS)} wide rounds: kernel_ms {sum(batch_rounds):.5f} "
+          f"(per round {', '.join(f'{t:.5f}' for t in batch_rounds)}), bound_ms "
+          f"{len(WIDTHS) * round_bound(64 * M, 2)['ms']:.6f}")
     main_path = [r for (kd, _), r in rounds.items() if kd == str(torch.int16)]
     print(f"K4: {cases} comparisons against the plain version, tolerance 0 (bit-identical), max abs err {max_err}")
     return {
@@ -386,6 +427,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     n1 = 1 << log2n
     errs = {"merge": 0, "merge_kv": 0, "sort_round": 0, "sort_tiles": 0, "sort_tiles_kv": 0}
     cases = dict.fromkeys(errs, 0)
+    k4_cases = 0  # K4's comparisons here (phase 3 holds it on the sampler's shapes)
 
     def launched(fn, call, n_launches):
         """Run ``call``; check that it launched ``fn`` n_launches times (none off the card)."""
@@ -508,10 +550,23 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         for w in (t // 2, t):
             xf = torch.cat([round_keys(keys, w)[: n1 // 16], torch.full((t,), max_sentinel(torch.int16), dtype=torch.int16, device=device)])
             round_case(xf, w, t, f"sort_round tile {t} width {w}")
+    # rounds small enough that the kernel gives a thread fewer outputs (it
+    # keeps at least 128 blocks a round), every width from tile / 2
+    keys = shuffled("dups", torch.int16)
+    for m in sorted({max(4 * tile, n1 >> s) for s in (9, 8, 7)}):
+        for w in (tile << i >> 1 for i in range((m // tile).bit_length())):
+            round_case(round_keys(keys[:m], w), w, tile, f"sort_round m {m} width {w}")
     keys = shuffled("sentinel", torch.int32)
     for w in (tile // 2, n1 // 4):
         xf = torch.cat([keys[:1], round_keys(keys, w)])[1:]  # one element past an aligned start
         round_case(xf, w, tile, f"sort_round off a 16-byte boundary width {w}")
+        # K4 the same way: keys and values each one element past an aligned start
+        kf, vf = round_inputs(keys, w, tile=tile)
+        kf, vf = torch.cat([kf[:1], kf])[1:], torch.cat([vf[:1], vf])[1:]
+        got = launched(km.sort_round_kv, lambda: km.sort_round_kv(kf, vf, w, tile=tile, leaf=leaf), 1)
+        for g, want, part in zip(got, km.sort_round_kv_ref(kf, vf, w, tile=tile), ("keys", "values")):
+            bit_err(g, want, f"sort_round_kv off a 16-byte boundary width {w} {part}")
+        k4_cases += 1
     # unsorted runs break the round's contract and their merge is unspecified,
     # but K3 must stay inside its buffers: runs wider than its span of 4096,
     # so that a block's two searches fall inside one pair (16384 on the card,
@@ -522,6 +577,10 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     got = launched(km.sort_round, lambda: km.sort_round(xf, w, tile=tile, leaf=leaf), 1)
     int(got.long().sum())  # waits for the kernel: a fault raises here
     check(got.shape == xf.shape, "sort_round of unsorted runs: shape")
+    vf = torch.arange(n1 + tile, dtype=torch.int32, device=device)  # K4 on the same runs, with values
+    gk, gv = launched(km.sort_round_kv, lambda: km.sort_round_kv(xf, vf, w, tile=tile, leaf=leaf), 1)
+    int(gk.long().sum()) + int(gv.long().sum())  # waits for the kernel: a fault raises here
+    check(gk.shape == xf.shape and gv.shape == vf.shape, "sort_round_kv of unsorted runs: shape")
     rows = torch.randint(-(2**31), 2**31 - 1, batch, generator=gen, device=device, dtype=torch.int64).to(torch.int32)
     got = launched(km.sort_round, lambda: ops.sort_batched(rows, tile=tile, leaf=leaf), wide_rounds(batch[1], tile))
     bit_err(got, torch.sort(rows, dim=1, stable=True).values, f"ops.sort_batched {tuple(batch)}")
@@ -617,9 +676,10 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
         bit_err(g, w, f"path: ops.merge_kv {part}")
     bit_err(sorted_keys, torch.sort(keys, stable=True).values, "path: ops.sort")
     bit_err(sorted_rows, torch.sort(rows, dim=1, stable=True).values, "path: ops.sort_batched")
-    print(f"merge/sort: {cases['merge']} K1 merges, {cases['merge_kv']} K2 merges, {cases['sort_round']} K3 rounds "
-          f"and {cases['sort_tiles']} S1 tile sorts with and without values against their plain versions at 2^{log2n} "
-          f"per side, tolerance 0 (bit-identical), max abs err {max(errs.values())}; the path launched {launches}")
+    print(f"merge/sort: {cases['merge']} K1 merges, {cases['merge_kv']} K2 merges, {cases['sort_round']} K3 rounds, "
+          f"{k4_cases} K4 rounds and {cases['sort_tiles']} S1 tile sorts with and without values against their plain "
+          f"versions at 2^{log2n} per side, tolerance 0 (bit-identical), max abs err {max(errs.values())}; the path "
+          f"launched {launches}")
 
     out = {name: {"launches": launches[name], "max_abs_err": errs[name], "ms": None, "plain_ms": None,
                   "library_ms": None, "bound_ms": None, "bound_by": None} for name in errs}
@@ -696,6 +756,7 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
     # each split into S1 with values, K4's wide rounds (on the keys and values
     # each round is handed) and the rest, beside a stable torch.sort
     fidx = torch.arange(n1, dtype=torch.int32, device=device)
+    rest = {}
     for what, call, library, k, v in (
         (f"ops.sort float32 2^{log2n}", lambda: ops.sort(fkeys, tile=tile, leaf=leaf),
          lambda: torch.sort(fkeys, stable=True), total_order_keys(fkeys), fidx),
@@ -709,10 +770,32 @@ def phase_merge_sort(device: str = "cuda", log2n: int = 24, batch=(64, 65536), t
             kf, vf = round_inputs(k, w, v)
             k4.append(time_ms(lambda: km.sort_round_kv(kf, vf, w, tile=tile, leaf=leaf)))
         k4_bound = len(widths) * round_bound(n1, 4)["ms"]
+        rest[what] = whole_ms - tiles_ms - sum(k4)
         print(f"  {what} split: S1 kv {tiles_ms:.5f} ms, {len(k4)} K4 wide rounds {sum(k4):.5f} ms (bound "
               f"{k4_bound:.6f}; per round {', '.join(f'{t:.5f}' for t in k4)}), the rest "
-              f"{whole_ms - tiles_ms - sum(k4):.5f} ms of {whole_ms:.5f} ms; stable torch.sort "
+              f"{rest[what]:.5f} ms of {whole_ms:.5f} ms; stable torch.sort "
               f"{time_ms(library, iters=5):.5f} ms")
+    # the rest of the float32 ops.sort, pass by pass as kernels/ops.py runs
+    # them around S1 and K4 (_argsort_batched, _sort_rounds_kv, sort_batched),
+    # on operands of the same shapes; the gather takes the sort's own order
+    x = fkeys[None, :]
+    tk = total_order_keys(fkeys)
+    perm = torch.sort(fkeys, stable=True).indices.to(torch.int32)[None, :]
+    perm_long = perm.long()
+    passes = {
+        "total_order_keys": lambda: total_order_keys(x),
+        "index payload": lambda: torch.arange(n1, dtype=torch.int32, device=device).expand(1, n1).reshape(-1),
+        "tail cat of the keys": lambda: torch.cat([tk, torch.full((tile,), max_sentinel(tk.dtype), dtype=tk.dtype,
+                                                                  device=device)]),
+        "tail cat of the values": lambda: torch.cat([fidx, torch.zeros((tile,), dtype=torch.int32, device=device)]),
+        "final slices": lambda: (tk[:n1].reshape(1, n1)[:, :n1], fidx[:n1].reshape(1, n1)[:, :n1]),
+        "perm.long()": lambda: perm.long(),
+        "gather": lambda: torch.gather(x, 1, perm_long),
+    }
+    split = {name: time_ms(fn) for name, fn in passes.items()}
+    what = f"ops.sort float32 2^{log2n}"
+    print(f"  {what} the rest, pass by pass (CUDA events): " + ", ".join(f"{k} {v:.5f}" for k, v in split.items())
+          + f" ms; sum {sum(split.values()):.5f} of the rest {rest[what]:.5f} ms")
     return out
 
 
@@ -1915,15 +1998,23 @@ def k10_registers(log: str) -> str:
 
 
 def sort_registers(built: dict) -> str:
-    """K3's and S1's registers a thread and spill bytes, per instantiation,
-    from the ``ptxas -v`` logs of ``sort_round.cu`` and ``sort_tiles.cu``."""
+    """K3's, K4's and S1's registers a thread and spill bytes, per
+    instantiation, from the ``ptxas -v`` logs of ``sort_round.cu`` (K3 and
+    K4 told apart by the ``kValues`` argument of ``sort_round_seg_kernel``'s
+    mangled name) and ``sort_tiles.cu``."""
     import re
 
     parts = []
-    for source, label in (("sort_round", "K3"), ("sort_tiles", "S1")):
+    for source in ("sort_round", "sort_tiles"):
         rows = ptxas_kernels(built[source].ptxas)
         check(bool(rows) or not built[source].ptxas, f"no kernel in the ptxas log of {source}.cu")
+        if source == "sort_round" and rows:
+            found = sorted(m.groups() for k, _, _ in rows if (m := re.search(r"sort_round_seg_kernelI([si])Lb([01])E", k)))
+            check(found == [("i", "0"), ("i", "1"), ("s", "0"), ("s", "1")],
+                  f"sort_round.cu: K3 and K4 instantiations in the ptxas log {found}, want int16/int32 x keys/values")
         for kernel, used, spills in rows:
+            m = re.search(r"sort_round_seg_kernelI([si])Lb([01])E", kernel)
+            label = f"K{3 + int(m.group(2))} {'int16' if m.group(1) == 's' else 'int32'}" if m else "S1"
             regs = re.search(r"Used (\d+) registers", used).group(1)
             spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", spills))
             parts.append(f"{label} {kernel}: {regs} registers, {spill} bytes of spill stores and loads")
@@ -1996,7 +2087,7 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     kernels = [
-        entry("sort_round_kv", "sort_round_kv.cu", 962, serving["launches"], k4),
+        entry("sort_round_kv", "sort_round.cu", 962, serving["launches"], k4),
         entry("merge", "merge.cu", 377, merge_sort["merge"]["launches"], merge_sort["merge"]),
         entry("merge_kv", "merge.cu", 395, merge_sort["merge_kv"]["launches"], merge_sort["merge_kv"]),
         entry("sort_round", "sort_round.cu", 924, merge_sort["sort_round"]["launches"], merge_sort["sort_round"]),

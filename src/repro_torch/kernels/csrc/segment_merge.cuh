@@ -1,16 +1,29 @@
 // The paper's per-thread segment merge in shared memory, for Hopper (sm_90a).
 //
-// Shared by the 1-D merges K1 and K2 and the row merges K5-K8
-// (merge.cu), K3's wide sort round (sort_round.cu) and the tile sort S1
-// (sort_tiles.cu), over keys of 2 or 4 bytes (int16, int32, float32,
-// bfloat16: key_le of merge_tile.cuh) and 32-bit values.  Each thread owns
-// E consecutive outputs of a merge: it finds its diagonal with one co-rank
-// (Algorithm 2) over the two sorted inputs in shared memory, then merges its
-// E outputs sequentially into registers with one comparison and one
-// shared-memory read each (the Segmented Parallel Merge of the paper, one
-// core per thread).  The merge is stable with A-priority; sides end by
-// index, never by comparing against a sentinel, so keys equal to iinfo.max
-// are data.
+// Replaces: src/repro/kernels/merge_path.py::_hier_merge_window (the
+// two-level tile body that every Pallas merge kernel runs: S-leaves by
+// Algorithm 2, then a co-rank per output slot), together with the per-tile
+// start tables that _prepare and _sort_round_starts compute in a separate
+// pass.  Every merge-path kernel runs this instead: the 1-D merges K1 and K2
+// and the row merges K5-K8 (merge.cu), the flat sort rounds K3 and K4
+// (sort_round.cu) and the tile sort S1 (sort_tiles.cu), over keys of 2 or 4
+// bytes (int16, int32, float32, bfloat16) and 32-bit values.
+//
+// A block finds its place on the merge path by a warp-cooperative Algorithm
+// 2 bisection in device memory (co_rank_warp), so there is no start-table
+// pass and no host round trip.  Each thread owns E consecutive outputs of a
+// merge: it finds its diagonal with one co-rank (Algorithm 2) over the two
+// sorted inputs in shared memory, then merges its E outputs sequentially
+// into registers with one comparison and one shared-memory read each (the
+// Segmented Parallel Merge of the paper, one core per thread).  The merge is
+// stable with A-priority: among keys that compare equal under the raw `<=`
+// (so -0.0 == +0.0), A's come first.  Sides end by index, never by comparing
+// against a sentinel, so keys equal to iinfo.max are data.
+//
+// Keys are compared with the raw `<=` of their type, as the reference's
+// `la > lb` does: no total-order transform.  bfloat16 keys travel as their
+// bits and compare through float, which is exact.  Values are 32-bit words
+// and are only moved (int32 and float32 alike).
 //
 // Shared-memory layout: element i of a buffer lives at slot spad<T>(i), with
 // one 4-byte word of padding after every 128 bytes.  A thread's E outputs
@@ -22,9 +35,79 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "merge_tile.cuh"
-
 namespace repro {
+
+// bfloat16 as its 16 bits.
+struct bf16 {
+  uint16_t bits;
+};
+
+template <typename K>
+__device__ __forceinline__ bool key_le(K x, K y) {
+  return x <= y;
+}
+
+template <>
+__device__ __forceinline__ bool key_le<bf16>(bf16 x, bf16 y) {
+  return __uint_as_float(static_cast<uint32_t>(x.bits) << 16) <=
+         __uint_as_float(static_cast<uint32_t>(y.bits) << 16);
+}
+
+// The sentinel that pads sorted data: the largest key of the type, +inf for
+// floats (the port's max_sentinel).  It fills the flat sort rounds' tail and
+// the slots of a ragged merge past each row's valid total.
+template <typename K>
+__device__ __forceinline__ K key_max();
+template <>
+__device__ __forceinline__ int16_t key_max<int16_t>() {
+  return INT16_MAX;
+}
+template <>
+__device__ __forceinline__ int32_t key_max<int32_t>() {
+  return INT32_MAX;
+}
+template <>
+__device__ __forceinline__ float key_max<float>() {
+  return __int_as_float(0x7f800000);  // +inf
+}
+template <>
+__device__ __forceinline__ bf16 key_max<bf16>() {
+  return bf16{0x7f80};  // +inf
+}
+
+// Co-rank (Algorithm 2) over device memory: the number of A elements among
+// the first d outputs of the stable A-priority merge of a[0:na] and
+// b[0:nb], 0 <= d <= na + nb, searched by a whole warp with 64-bit offsets.
+// The predicate a[i] <= b[d - 1 - i] holds for i below the answer and fails
+// from it on, so 32 evenly spaced probes and a ballot narrow [lo, hi] to one
+// step's width: a span of 2^24 takes 5 dependent steps instead of 24.  Must
+// be called by all 32 lanes of a warp with the same arguments.
+template <typename K>
+__device__ int64_t co_rank_warp(const K* __restrict__ a, int64_t na, const K* __restrict__ b,
+                                int64_t nb, int64_t d) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = d - nb > 0 ? d - nb : 0;
+  int64_t hi = d < na ? d : na;
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t i = lo + lane * step;
+    const bool pred = i < hi && key_le(a[i], b[d - 1 - i]);
+    const int c = __popc(__ballot_sync(0xffffffffu, pred));  // probes 0..c-1 hold
+    const int64_t new_lo = c > 0 ? lo + (c - 1) * step + 1 : lo;
+    const int64_t cut = lo + c * step;  // probe c failed, or lies past hi
+    hi = cut < hi ? cut : hi;
+    lo = new_lo;
+  }
+  return lo;
+}
+
+// Opt in to more than 48 KB of dynamic shared memory where a block needs it.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
 // The slot of element i in a padded shared-memory buffer of T.
 template <typename T>
@@ -183,3 +266,9 @@ __device__ __forceinline__ void put_segment(T* s, int j0, int e, const T (&r)[E]
 }
 
 }  // namespace repro
+
+// Every merge-path library exports it: kernels/merge_path.py turns a launch's
+// error code into its message.
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -7,8 +7,8 @@ The counterparts of the reference's Pallas entry points
   ``merge_kv_pallas``): stable A-priority merges of two sorted 1-D arrays,
   ``csrc/merge.cu``;
 * :func:`sort_round` (K3, ``sort_round_pallas``) and :func:`sort_round_kv`
-  (K4, ``sort_round_kv_pallas``): one flat merge-sort round,
-  ``csrc/sort_round.cu`` and ``csrc/sort_round_kv.cu``;
+  (K4, ``sort_round_kv_pallas``): one flat merge-sort round, keys only and
+  with values, one kernel template in ``csrc/sort_round.cu``;
 * :func:`sort_tiles` and :func:`sort_tiles_kv` (S1, no Pallas counterpart:
   the reference runs the same narrow rounds in XLA): every chunk of a flat
   buffer sorted stably in one launch, ``csrc/sort_tiles.cu``;
@@ -19,13 +19,11 @@ The counterparts of the reference's Pallas entry points
   ``B`` independent row merges, the ragged ones with per-row valid
   lengths, ``csrc/merge.cu``.
 
-K1, K2, K3, S1 and K5-K8 share the per-thread segment merge of
-``csrc/segment_merge.cuh``; K4 runs the tile body of
-``csrc/merge_tile.cuh``.  A sort keeps one
-flat buffer of ``m + tile`` elements: ``m`` data elements in sorted runs of
-``width``, then ``tile`` sentinel keys (with zero values).  One round
-merges each pair of runs into a run of ``2 * width`` and returns the same
-layout.
+Every one of them runs the per-thread segment merge of
+``csrc/segment_merge.cuh``.  A sort keeps one flat buffer of ``m + tile``
+elements: ``m`` data elements in sorted runs of ``width``, then ``tile``
+sentinel keys (with zero values).  One round merges each pair of runs into
+a run of ``2 * width`` and returns the same layout.
 
 Each wrapper launches its kernel on a CUDA tensor (and counts the launch
 in ``<wrapper>.launches``) and raises if the launch fails; on a CPU tensor
@@ -49,7 +47,10 @@ from .ref import sort_kv_ref, sort_ref
 
 DEFAULT_TILE = 512
 DEFAULT_LEAF = 32
-MAX_TILE = 4096  # K4's windows at 4-byte keys and values: 64 KB of shared memory
+# The largest chunk of the tile sort S1 (kMaxChunk in csrc/sort_tiles.cu): the
+# largest ``chunk`` its wrappers take, and the largest ``tile`` of the merge
+# and round wrappers.
+MAX_TILE = 4096
 # Outputs per block of K1 and of K2, whatever the tile: kSpan<false> and
 # kSpan<true> in csrc/merge.cu, which must agree.
 MERGE_SPAN = 8192
@@ -58,6 +59,11 @@ MERGE_KV_SPAN = 4096
 # tile: kRowsSpan and kRowsKvSpan in csrc/merge.cu, which must agree.
 MERGE_ROWS_SPAN = 4096
 MERGE_ROWS_KV_SPAN = 2048
+# The most outputs per block of K4, which a round takes when its pairs are at
+# least that wide and it has at least 128 such blocks (smaller rounds give a
+# thread fewer outputs): kThreads * kE<true> in csrc/sort_round.cu, which
+# must agree.
+SORT_ROUND_KV_SPAN = 2048
 KEY_DTYPES = (torch.int16, torch.int32)
 MERGE_KEY_DTYPES = (torch.int16, torch.int32, torch.float32, torch.bfloat16)
 MERGE_VALUE_DTYPES = (torch.int32, torch.float32)
@@ -325,7 +331,10 @@ def sort_round_kv(
     ``kf`` (int16 or int32) and ``vf`` (int32) are ``(m + tile,)``: runs of
     ``width`` sorted keys, then ``tile`` sentinels with zero values; the
     rules on ``width``, ``tile`` and ``m`` are :func:`sort_round`'s.
-    Returns new ``(keys, values)`` holding runs of ``2 * width``.
+    ``leaf`` is kept for parity with ``sort_round_kv_pallas``; the kernel,
+    :func:`sort_round`'s with the values riding along, ignores it, and
+    ``tile`` sets only the tail.  Returns new ``(keys, values)`` holding
+    runs of ``2 * width``.
 
     A CUDA tensor launches the kernel (and counts one in
     ``sort_round_kv.launches``); a CPU tensor takes
@@ -336,7 +345,7 @@ def sort_round_kv(
         return sort_round_kv_ref(kf, vf, width, tile=tile)
     ko = torch.empty_like(kf)
     vo = torch.empty_like(vf)
-    _launch("sort_round_kv", "sort_round_kv", "sort_round_kv", kf.dtype, kf.device,
+    _launch("sort_round_kv", "sort_round", "sort_round_kv", kf.dtype, kf.device,
             kf.data_ptr(), vf.data_ptr(), ko.data_ptr(), vo.data_ptr(), width, tile, _leaf(tile, leaf), m // tile)
     sort_round_kv.launches += 1
     return ko, vo

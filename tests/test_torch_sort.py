@@ -121,6 +121,38 @@ def test_kv_sorts_match_reference(fn, key_dtype, value_dtype, shape):
         _same(gv, wv)
 
 
+@pytest.mark.parametrize("fn,dtype", [("sort", np.float32), ("sort_kv", np.int32), ("topk_batched", np.int32)])
+def test_sorts_past_the_round_span_match_reference(fn, dtype):
+    """The surface through K4's rounds at widths past its span of 4096 on a
+    small buffer (10000 keys pad to m = 16384; tile 1024: rounds of widths
+    1024 ... 8192), with many ties and keys equal to ``iinfo.max`` (int
+    keys; top-k flips ``iinfo.min`` onto it): the port's CPU path against
+    the reference, whose wide rounds run ``sort_round_kv_pallas`` in
+    interpret mode, and against a stable ``torch.sort``."""
+    n, tile = 10000, 1024
+    rng = np.random.default_rng(22)
+    if fn == "sort":
+        x = _keys(dtype, (n,), rng)
+        got = ops.sort(_t(x), tile=tile, leaf=LEAF)
+        _same(got, jax_ops.sort(jnp.asarray(x), tile=tile, leaf=LEAF))
+        _same(got, torch.sort(_t(x), stable=True).values)
+    elif fn == "sort_kv":
+        k = _keys(dtype, (n,), rng)
+        v = rng.permutation(n).astype(np.int32)
+        gk, gv = ops.sort_kv(_t(k), _t(v), tile=tile, leaf=LEAF)
+        wk, wv = jax_ops.sort_kv(jnp.asarray(k), jnp.asarray(v), tile=tile, leaf=LEAF)
+        _same(gk, wk)
+        _same(gv, wv)
+        np.testing.assert_array_equal(gv.numpy(), v[np.argsort(k, kind="stable")])
+    else:
+        x = _keys(dtype, (2, n), rng)
+        gv, gi = ops.topk_batched(_t(x), 3000, tile=tile, leaf=LEAF)
+        wv, wi = jax_ops.topk_batched(jnp.asarray(x), 3000, tile=tile, leaf=LEAF)
+        _same(gv, wv)
+        _same(gi, wi)
+        np.testing.assert_array_equal(gi.numpy(), np.argsort(-x.astype(np.int64), axis=1, kind="stable")[:, :3000])
+
+
 @pytest.mark.parametrize("dtype", [np.float32, BF16])
 def test_float_sorts_keep_signed_zeros_in_input_order(dtype):
     """-0.0 and +0.0 tie: the sorts keep their input order, the stable order

@@ -1,5 +1,5 @@
-"""K4's plain version against the JAX Pallas round, bit for bit; K3 on
-unsorted runs.
+"""K4's plain version against the JAX Pallas round, bit for bit; K3 and K4
+on unsorted runs; the round kernel's source rules.
 
 The JAX side runs ``sort_round_kv_pallas`` in interpret mode, as the JAX
 package's own tests do on the CPU.  The port's CUDA kernel is not built
@@ -120,12 +120,69 @@ def test_sort_round_of_unsorted_runs_keeps_its_layout():
     np.testing.assert_array_equal(got[: 4 * width].numpy(), np.sort(xf[: 4 * width].numpy().reshape(-1, 2 * width), axis=1).reshape(-1))
 
 
+def test_sort_round_kv_of_unsorted_runs_keeps_its_layout():
+    """Unsorted runs break K4's contract too and their merge is unspecified,
+    but the round keeps its layout: ``m + T`` keys and values, the tail
+    rewritten with sentinel keys and zero values whatever it held.  On the
+    card ``chip_smoke.py`` runs the kernel on such runs past its span."""
+    rng = np.random.default_rng(4)
+    width, imax = 4 * TILE, np.iinfo(np.int32).max
+    keys = rng.integers(-1000, 1000, 4 * width).astype(np.int32)
+    keys[rng.random(4 * width) < 0.1] = imax
+    vals = rng.permutation(4 * width).astype(np.int32)
+    kf = torch.from_numpy(np.concatenate([keys, np.full(TILE, 5, np.int32)]))
+    vf = torch.from_numpy(np.concatenate([vals, np.full(TILE, -1, np.int32)]))
+    before = km.sort_round_kv.launches
+    gk, gv = km.sort_round_kv(kf, vf, width, tile=TILE, leaf=LEAF)
+    assert km.sort_round_kv.launches == before
+    assert gk.shape == kf.shape and gv.shape == vf.shape and gk.dtype == kf.dtype and gv.dtype == vf.dtype
+    np.testing.assert_array_equal(gk[4 * width:].numpy(), np.full(TILE, imax, np.int32))
+    np.testing.assert_array_equal(gv[4 * width:].numpy(), np.zeros(TILE, np.int32))
+    order = np.argsort(keys.reshape(-1, 2 * width), axis=1, kind="stable")
+    np.testing.assert_array_equal(gk[: 4 * width].numpy(), np.take_along_axis(keys.reshape(-1, 2 * width), order, 1).reshape(-1))
+    np.testing.assert_array_equal(gv[: 4 * width].numpy(), np.take_along_axis(vals.reshape(-1, 2 * width), order, 1).reshape(-1))
+
+
 def test_sort_round_kernel_clamps_its_window():
-    """Where a block lies inside one pair, K3 stages windows of ``wa`` and
-    ``span - wa`` keys from its two searches; on unsorted runs the searches
-    need not be monotone, so ``wa`` is clamped to ``[0, span]`` before
-    either window is staged, as ``merge_block`` clamps K1's."""
+    """Where a block lies inside one pair, K3 and K4 (one kernel template)
+    stage windows of ``wa`` and ``span - wa`` keys, and K4 its values at the
+    same offsets, from its two searches; on unsorted runs the searches need
+    not be monotone, so ``wa`` is clamped to ``[0, span]`` before either
+    window is staged, for the keys and the values alike, as ``merge_block``
+    clamps K1's."""
     src = (Path(km.__file__).parent / "csrc" / "sort_round.cu").read_text()
-    inside = src[src.index("if (two_w > span)"):src.index("stage_window(s, wa,")]
+    # one staging helper: each window of the keys, and the same of the values
+    helper = src[src.index("const auto stage = [&](int64_t ga, int ca, int64_t gb, int cb) {"):src.index("const int j0")]
+    assert "const WindowPair<K> wk(kf, ga, ca, gb, cb);" in helper
+    assert "const WindowPair<uint32_t> wv(vf, ga, ca, gb, cb);" in helper
+    assert helper.count("load_windows(") == 2 and helper.count("store_windows(") == 3
+    start = src.index("if (two_w > span)")
+    inside = src[start:src.index("} else {", start)]
     clamp = re.search(r"const int wa = static_cast<int>\(wa64 < 0 \? 0 : \(wa64 < span \? wa64 : span\)\);", inside)
-    assert clamp and clamp.start() < inside.index("stage_window(")
+    calls = [m.start() for m in re.finditer(r"\bstage\(", inside)]
+    assert clamp and len(calls) == 1 and clamp.end() <= calls[0]
+    assert "stage(base + win[0], wa, base + width + (dg - win[0]), span - wa);" in inside
+    assert "_window" not in inside  # nothing is staged around the helper
+
+
+def test_round_kv_span_matches_the_kernel():
+    """``SORT_ROUND_KV_SPAN`` is K4's most outputs per block in
+    ``sort_round.cu``: threads times outputs a thread with values."""
+    src = (Path(km.__file__).parent / "csrc" / "sort_round.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    per_thread = re.search(r"constexpr int kE = kValues \? (\d+) : (\d+);", src)
+    assert km.SORT_ROUND_KV_SPAN == threads * int(per_thread[1])
+
+
+def test_tile_body_is_retired():
+    """Every merge-path kernel runs the segment merge: no source defines the
+    TPU-shaped tile body, its block search or its launcher any more, and
+    the K4 library is ``sort_round``'s."""
+    csrc = Path(km.__file__).parent / "csrc"
+    for path in csrc.iterdir():
+        text = path.read_text()
+        for name in ("merge_tile", "block_co_rank", "sort_round_kernel", "launch_sort_round", "block_threads"):
+            assert not re.search(rf"\b{name}\b", text), f"{path.name} names {name}"
+    assert not (csrc / "sort_round_kv.cu").exists() and not (csrc / "merge_tile.cuh").exists()
+    src = (csrc / "sort_round.cu").read_text()
+    assert "int sort_round_kv_i16(" in src and "int sort_round_kv_i32(" in src
