@@ -71,7 +71,23 @@ Phases (any failure raises, and the script exits non-zero):
    layer and step, K9 twice); K10 on layer 0's own operands with its
    times, and a traced step; the reduced config on the card against the
    CPU;
-9. the ``kernels`` line, the card line and the result line.
+9. attention (:func:`phase_attention`): hymba-1.5b at full width (random
+   weights from a seed, fused scan) prefilled on a (1, 16384) prompt
+   through ``make_prefill_step`` (past the dense threshold: every layer
+   on the blockwise attention, the window layers' rings wrapped; K9 once
+   per layer, 32 launches), then 16 tokens sampled with top-k 40 (6 K4
+   and 1 S1 launches each); K9 on layer 0's own inputs against its plain
+   version, timed at hymba's width; the prefill traced by kind of device
+   operation; prefill against stepping on layer 0's k, v, conv and ssm
+   caches; hymba trained 3 steps of (1, 4096) at all 32 layers with
+   ``remat_policy="full"`` (64 K9 and 32 K10 launches a step) and 3 with
+   ``"dots"``; K10 on layer 0's own operands, timed; tinyllama-1.1b at
+   full width prefilled on (1, 4096) (the dense path), against stepping,
+   and trained 3 steps of (1, 4096); the reduced hymba and tinyllama on
+   the card against the CPU; gemma3-12b at full width served by
+   ``ServingEngine`` (2 requests at batch 1; 9 K4 launches and 1 S1 per
+   sampled token);
+10. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -1597,43 +1613,8 @@ def phase_ssm(device: str = "cuda", arch: str = "falcon-mamba-7b", reduce: bool 
     del params, pre, stepped
     if on_card:
         torch.cuda.empty_cache()
-    phase_ssm_reference(device, arch)
+    reduced_against_cpu(device, arch)
     return out
-
-
-def phase_ssm_reference(device: str, arch: str) -> None:
-    """The reduced SSM config (float32, fused scan) on ``device`` against the
-    same weights on the CPU: prefill logits and caches, then 4 decode steps."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import forward_decode, forward_prefill, init_params
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch).reduced(), ssm_backend="fused")  # 2 layers, d=64, state 8
-    cpu = init_params(cfg, seed=0, device="cpu")
-    dev = _to(cpu, device)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 37)))
-    lc, cc, _ = forward_prefill(cfg, cpu, {"tokens": tokens})
-    lg, cg, _ = forward_prefill(cfg, dev, {"tokens": tokens.to(device)})
-    # float32 sums run in another order on the card, and K9's exp is ex2.approx: 1e-4 covers both
-    check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced prefill logits differ: {float((lg.cpu() - lc).abs().max())}")
-    for name in ("conv", "ssm"):
-        check(torch.allclose(cg["sub0"][name].cpu(), cc["sub0"][name], atol=1e-4, rtol=1e-4), f"reduced prefill {name} differs")
-    tok = lc.argmax(-1, keepdim=True)
-    for t in range(4):
-        pos = torch.full((2,), tokens.shape[1] + t)
-        lc, _ = forward_decode(cfg, cpu, cc, tok, pos)
-        lg, _ = forward_decode(cfg, dev, cg, tok.to(device), pos.to(device))
-        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced decode logits differ at step {t}: {float((lg.cpu() - lc).abs().max())}")
-        check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"greedy tokens differ at step {t}")
-        tok = lc.argmax(-1, keepdim=True)
-    print(f"ssm reference: reduced {arch} (fused scan) on {device} matches the CPU within 1e-4: prefill logits and "
-          "caches, then 4 decode steps; greedy tokens identical")
 
 
 BWD_SHAPES = ((1, 4096), (2, 1000))  # (B, S) at the layer's D and st: the training run's and B > 1
@@ -1966,6 +1947,448 @@ def phase_train(device: str = "cuda", reduce: bool = False, shapes=BWD_SHAPES, d
     return res
 
 
+ATTN_ARCH, DENSE_ARCH, SERVE_ARCH = "hymba-1.5b", "tinyllama-1.1b", "gemma3-12b"
+ATTN_PROMPT, ATTN_NEW, ATTN_TRAIN_SEQ, ATTN_STEPS = 16384, 16, 4096, 3  # hymba: past FULL_ATTENTION_THRESHOLD
+DENSE_PROMPT = 4096  # tinyllama: the dense _sdpa path
+
+
+def reduced_against_cpu(device: str, arch: str, prompt: int = 37) -> None:
+    """The reduced config (float32, fused scan) on ``device`` against the same
+    weights on the CPU: prefill logits and every cache, then 4 decode steps
+    with greedy tokens identical (TF32 off, as :func:`phase_reference`).
+    Float32 sums run in another order on the card, and K9's exp is
+    ex2.approx: 1e-4 covers both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), ssm_backend="fused")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    dev = _to(cpu, device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt)))
+    cache_len = prompt + 4
+    lc, cc, _ = forward_prefill(cfg, cpu, {"tokens": tokens}, cache_len)
+    lg, cg, _ = forward_prefill(cfg, dev, {"tokens": tokens.to(device)}, cache_len)
+    check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} prefill logits differ: "
+          f"{float((lg.cpu() - lc).abs().max())}")
+    for sub, names in cc.items():
+        for name, t in names.items():
+            check(torch.allclose(cg[sub][name].cpu(), t, atol=1e-4, rtol=1e-4), f"reduced {arch} prefill {sub}/{name} differs")
+    tok = lc.argmax(-1, keepdim=True)
+    for t in range(4):
+        pos = torch.full((2,), prompt + t)
+        lc, _ = forward_decode(cfg, cpu, cc, tok, pos)
+        lg, _ = forward_decode(cfg, dev, cg, tok.to(device), pos.to(device))
+        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} decode logits differ at step {t}: "
+              f"{float((lg.cpu() - lc).abs().max())}")
+        check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"reduced {arch} greedy tokens differ at step {t}")
+        tok = lc.argmax(-1, keepdim=True)
+    print(f"reference: reduced {arch} ({cfg.num_layers} layers, window {cfg.sliding_window}, prompt {prompt}, fused "
+          f"scan) on {device} matches the CPU within 1e-4: prefill logits and every cache, then 4 decode steps; greedy "
+          "tokens identical")
+
+
+def _prefill_against_stepping(cfg, params, prefill, decode, tokens, device: str) -> str:
+    """Layer 0's caches after one prefill of ``tokens (1, n)`` against n
+    decode steps from zero caches, within ``STEP_RTOL`` of max (phase 7's
+    tolerance); a bfloat16 cache also within one bfloat16 ulp of its
+    largest element.  The prefill projects n tokens at once and a decode
+    step one, which the card runs as different matrix kernels whose sums
+    run in another order, so a bfloat16 projection may round the other
+    way (one ulp of the element), and the rotary embedding carries that
+    into the element's pair (norm-preserving: within one ulp of the
+    largest).  Returns a line that reports it."""
+    import torch
+
+    from repro_torch.models import init_caches
+
+    n = tokens.shape[1]
+    _, pre = prefill(params, {"tokens": tokens}, n)
+    stepped = init_caches(cfg, 1, n, device=device)
+    for t in range(n):
+        decode(params, stepped, tokens[:, t:t + 1], torch.full((1,), t, device=device))
+    parts = []
+    for name in pre["sub0"]:
+        got, want = pre["sub0"][name][0], stepped["sub0"][name][0]
+        top = float(want.float().abs().max())
+        ulp = math.ldexp(1.0, math.frexp(top)[1] - 8) if want.dtype == torch.bfloat16 and top > 0 else 0.0
+        err = scan_err(got, want, f"{cfg.name} prefill against stepping, layer 0 {name}", STEP_RTOL, ulp)
+        parts.append(f"{name} {err:.3g} ({err / max(float(want.float().abs().max()), 1e-30):.3g} of max)")
+    return f"layer 0 after a prefill of {n} tokens against {n} decode steps: max abs err " + ", ".join(parts)
+
+
+def phase_attention(device: str = "cuda", reduce: bool = False, prompt: int = ATTN_PROMPT, new_tokens: int = ATTN_NEW,
+                    step_prompt: int = 64, train_seq: int = ATTN_TRAIN_SEQ, steps: int = ATTN_STEPS,
+                    dense_prompt: int = DENSE_PROMPT, serve_prompt: int = 6, serve_new: int = 4, seed: int = 7) -> dict:
+    """Attention prefill and training: hymba-1.5b, tinyllama-1.1b and gemma3-12b.
+
+    1. hymba-1.5b at full width (random weights from seed 0, fused scan),
+       driven once with every count at 0: ``make_prefill_step`` of a ``(1,
+       prompt)`` prompt with ``cache_len = prompt + new_tokens`` (past
+       ``FULL_ATTENTION_THRESHOLD`` every layer runs the blockwise
+       attention, and the window layers' rings wrap; K9 once per layer),
+       then ``new_tokens`` tokens sampled with top-k 40 through
+       ``make_decode_step`` (K4's wide rounds and S1 once per token).  K9
+       on layer 0's own inputs against its plain version, with its times;
+       the prefill traced by kind (``launch/profile.py``); layer 0's k, v,
+       conv and ssm caches after a prefill of ``step_prompt`` tokens against
+       as many decode steps.
+    2. hymba trained ``steps`` steps of ``(1, train_seq)`` at all its layers
+       with ``remat_policy="full"`` (K9 twice per layer and step, K10
+       once), then ``steps`` more with ``"dots"``, whose counts are printed:
+       finite losses, every parameter moved; K10 on layer 0's own operands
+       against its plain version, with its times.
+    3. tinyllama-1.1b at full width: one ``forward_prefill`` of ``(1,
+       dense_prompt)`` (the dense ``_sdpa`` path), layer 0's k and v against
+       stepping, ``steps`` train steps of ``(1, dense_prompt)``.
+    4. Reduced hymba and tinyllama (float32) on this device against the CPU.
+    5. gemma3-12b at full width: ``ServingEngine`` at batch 1 serves 2
+       requests of ``serve_prompt`` tokens and ``serve_new`` new ones; K4
+       runs its 9 wide rounds per sampled token (vocab 262144), S1 once.
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the configs are the reduced ones, the wrappers run their plain
+    versions, nothing is launched, timed or traced, and every check still
+    runs.  Returns K9's and K10's numbers at hymba's shapes.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.kernels.tune import pick
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.attention import FULL_ATTENTION_THRESHOLD
+    from repro_torch.models.transformer import _dtype, _group_windows
+    from repro_torch.serving import Request, ServingEngine, topk_sample
+    from repro_torch.train import init_train_state, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train.steps import _cast
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def config(arch):
+        base = get_config(arch)
+        return dataclasses.replace(base.reduced() if reduce else base, ssm_backend="fused")
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def want(**kw):
+        out = dict.fromkeys((fn.__name__ for fn in WRAPPERS), 0)
+        if on_card:
+            out.update(kw)
+        return out
+
+    def peak_gb():
+        return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if on_card else "not measured"
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # 1. hymba serving: prefill past the threshold, then sampled tokens
+    cfg = config(ATTN_ARCH)
+    t0 = time.perf_counter()
+    params = _cast(init_params(cfg, seed=0, device=device), _dtype(cfg))  # once, as the engine does
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    windows = _group_windows(cfg)
+    print(f"attention: {cfg.name} ({cfg.num_layers} layers in groups of {cfg.layer_group}, windows {windows}, "
+          f"d={cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, d_inner={cfg.d_inner}, state "
+          f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, fused scan), {n_bytes / 1e9:.3f} GB of weights "
+          f"from seed 0 in {time.perf_counter() - t0:.2f} s")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    cache_len = prompt + new_tokens
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    layer0 = []
+    real_scan = ssm_mod.ssm_scan
+
+    def keep_layer0(*args, **kw):  # the model's own K9 inputs of layer 0
+        if not layer0:
+            layer0.append((args, kw))
+        return real_scan(*args, **kw)
+
+    ssm_mod.ssm_scan = keep_layer0
+    try:
+        free()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens}, cache_len)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_k9 = ks.ssm_scan.launches
+        state0 = caches["sub0"]["ssm"][0].clone()
+        sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            pos = torch.full((1,), prompt + i, device=device)
+            logits, caches = decode(params, caches, sampled[-1][:, None], pos)
+            sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+        sync()
+        decode_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        ssm_mod.ssm_scan = real_scan
+    k4_rounds = wide_rounds(cfg.vocab_size, pick(cfg.vocab_size)[0])
+    check(prefill_k9 == (cfg.num_layers if on_card else 0), f"hymba prefill launched K9 {prefill_k9} times")
+    expect = want(ssm_scan=cfg.num_layers, sort_round_kv=new_tokens * k4_rounds, sort_tiles_kv=new_tokens)
+    check(launches == expect, f"hymba serving path launched {launches}, want {expect}")
+    ids = torch.cat(sampled)
+    check(ids.shape == (new_tokens,) and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"sampled ids {ids.tolist()}")
+    check(bool(torch.isfinite(logits.float()).all()), "hymba decode logits not finite")
+    for i, w in enumerate(windows):
+        sub = caches[f"sub{i}"]
+        check(sub["k"].shape[2] == (min(w, cache_len) if w else cache_len), f"sub{i} k cache {tuple(sub['k'].shape)}")
+        for name, t in sub.items():
+            check(bool(torch.isfinite(t.float()).all()), f"hymba cache sub{i}/{name} not finite")
+    blockwise = prompt > FULL_ATTENTION_THRESHOLD
+    print(f"attention: hymba prefill (1, {prompt}), cache_len {cache_len} ({'blockwise' if blockwise else 'dense'} "
+          f"attention, chunk {cfg.attn_chunk}; window layers wrap a ring of {min(w for w in windows if w)}) in "
+          f"{prefill_s * 1e3:.1f} ms, K9 launched {prefill_k9} times; {new_tokens} tokens sampled (top-k 40), "
+          f"{new_tokens - 1} decode steps in {decode_s * 1e3:.1f} ms ({decode_s * 1e3 / max(1, new_tokens - 1):.2f} ms "
+          f"per step with its sample); K4 launched {launches['sort_round_kv']} times ({k4_rounds} wide rounds per "
+          f"token), S1 {launches['sort_tiles_kv']}; peak memory {peak_gb()}; ids {ids.tolist()}")
+
+    # K9 on layer 0's own inputs, at hymba's width
+    args0, kw0 = layer0[0]
+    got = ks.ssm_scan(*args0, **kw0)
+    ref = ks.ssm_scan_ref(*args0, **kw0)
+    k9_err = max(scan_err(g, w, f"K9 on hymba's layer 0 {part}") for part, g, w in zip(("y", "h_final"), got, ref))
+    check(torch.equal(got[1], state0), "hymba's layer 0 cached state is not K9's h_final on the same inputs")
+    k9 = {"launches": prefill_k9, "max_abs_err": k9_err, "ms": None, "plain_ms": None, "bound_ms": None,
+          "bound_by": None, "sfu_ms": None, "shape": tuple(args0[1].shape) + (args0[2].shape[2],)}
+    del got, ref
+    if on_card:
+        bsz, s = args0[1].shape[:2]
+        sizes = tuple(t.element_size() for t in (args0[0], args0[1], args0[2], args0[4]))
+        bound = scan_bound(bsz, s, args0[1].shape[2], args0[2].shape[2], sizes)
+        k9.update(ms=time_ms(lambda: ks.ssm_scan(*args0, **kw0)),
+                  plain_ms=time_ms(lambda: ks.ssm_scan_ref(*args0, **kw0), iters=1),
+                  bound_ms=bound["ms"], bound_by=bound["by"], sfu_ms=bound["exp_unit_ms"])
+        print(f"  K9 {k9['shape']} (dt {args0[0].dtype}, x {args0[1].dtype}): kernel_ms {k9['ms']:.5f}  plain_ms "
+              f"{k9['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} ({bound['by']}; bytes {bound['bytes_ms']:.6f}, float32 "
+              f"ops {bound['ops_ms']:.6f}), SFU floor {bound['exp_unit_ms']:.6f}; kernel {k9['ms'] / bound['ms']:.3f}x "
+              f"the bound, {k9['ms'] / bound['exp_unit_ms']:.3f}x the SFU floor; K9 in all {k9['ms'] * prefill_k9:.2f} ms "
+              f"of the {prefill_s * 1e3:.1f} ms prefill (CUDA events)")
+        from repro_torch.launch.profile import profile_prefill, report_prefill
+
+        report_prefill(f"hymba prefill (1, {prompt}) traced", profile_prefill(prefill, params, tokens, cache_len))
+    print(f"attention: K9 on hymba's layer 0 inputs {k9['shape']} against its plain version: max abs err {k9_err:.3g}")
+    del layer0, args0, kw0, caches, logits
+    print("attention: hymba " + _prefill_against_stepping(cfg, params, prefill, decode, tokens[:, :step_prompt], device))
+    del params
+    free()
+
+    # 2. hymba training at all its layers, both remat policies
+    tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, seed=0, device=device)
+    state["step"].fill_(1)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    print(f"attention: training {cfg.name} at all {cfg.num_layers} layers: {n_params / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9:.2f} GB of float32 masters and moments "
+          f"in {time.perf_counter() - t0:.2f} s")
+    pipe = SyntheticLMPipeline(cfg, 1, train_seq, PipelineConfig(seed=0))
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in pipe.batch_at(i).items()} for i in range(1, steps + 1)]
+    before = _fingerprints(state["params"])
+    layer0 = []
+    real_bwd = ks._backward
+
+    def keep_bwd(saved, dy, dh):  # the last K10 of the first backward is layer 0's
+        layer0[:] = [tuple(t.detach() for t in saved), dy.contiguous(), dh.float().contiguous()]
+        return real_bwd(saved, dy, dh)
+
+    train = {}
+    for policy in ("full", "dots"):
+        step_fn = make_train_step(dataclasses.replace(cfg, remat_policy=policy), tcfg)
+        losses, step_ms = [], []
+        ks._backward = keep_bwd if policy == "full" else real_bwd
+        try:
+            free()
+            reset_launches()
+            sync()
+            for i, batch in enumerate(batches):
+                if on_card:
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                state, m = step_fn(state, batch)
+                if on_card:
+                    ev[1].record()
+                    ev[1].synchronize()
+                    step_ms.append(ev[0].elapsed_time(ev[1]))
+                losses.append(float(m["loss"]))
+                check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+                      f"hymba {policy} step {i + 1}: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+                ks._backward = real_bwd  # layer 0's operands of the first step are kept
+            sync()
+            launches = counts()
+        finally:
+            ks._backward = real_bwd
+        if policy == "full":
+            expect = want(ssm_scan=2 * cfg.num_layers * steps, ssm_scan_bwd=cfg.num_layers * steps)
+            check(launches == expect, f"hymba training ({policy}) launched {launches}, want {expect}")
+        ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None
+        train[policy] = {"ms": ms, "launches": launches, "peak": peak_gb()}
+        print(f"attention: hymba {steps} train steps of (1, {train_seq}), remat_policy={policy!r}: losses "
+              f"{[round(x, 5) for x in losses]}; K9 launched {launches['ssm_scan']} times, K10 "
+              f"{launches['ssm_scan_bwd']}, the others {sum(launches.values()) - launches['ssm_scan'] - launches['ssm_scan_bwd']}"
+              + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}, {ms:.3f} ms per step after the first, "
+                 f"{train_seq / ms * 1e3:.0f} tokens/s; peak memory {peak_gb()}" if on_card else
+                 "; times and peak memory not measured (CPU)"))
+    after = _fingerprints(state["params"])
+    from repro_torch.train.smoke import leaf_report
+
+    still = [name for (name, _, _), a, b in zip(leaf_report(state["params"]), before, after) if torch.equal(a, b)]
+    check(not still, f"hymba parameters did not move: {still}")
+    del state, batches
+
+    # K10 on layer 0's own operands, at hymba's width
+    (dt0, x0, b0, c0, a0, hstart0), dy0, dh0 = layer0
+    args0 = (dt0, x0, b0, c0, a0, hstart0)
+    chunk = ks.GRAD_CHUNK
+    check(tuple(x0.shape) == (1, train_seq, cfg.d_inner), f"hymba's layer 0 K10 operands {tuple(x0.shape)}")
+    got = ks.ssm_scan_bwd(*args0, dy0, dh0, chunk=chunk)
+    ref = ks.ssm_scan_bwd_ref(*args0, dy0, dh0, chunk=chunk)
+    k10_err = max(scan_err(g, w, f"K10 on hymba's layer 0 {part}", BWD_RTOL, 0.0)
+                  for part, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got, ref))
+    del got, ref
+    k10 = {"launches": train["full"]["launches"]["ssm_scan_bwd"], "max_abs_err": k10_err, "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "sfu_ms": None, "shape": tuple(x0.shape) + (cfg.ssm_state,),
+           "step_ms": {k: v["ms"] for k, v in train.items()}}
+    if on_card:
+        sizes = tuple(t.element_size() for t in (dt0, x0, dy0, b0, a0))
+        bound = bwd_bound(1, train_seq, cfg.d_inner, cfg.ssm_state, sizes,
+                          ks.bwd_work_floats(1, train_seq, cfg.d_inner, cfg.ssm_state))
+        k10.update(ms=time_ms(lambda: ks.ssm_scan_bwd(*args0, dy0, dh0, chunk=chunk)),
+                   plain_ms=time_ms(lambda: ks.ssm_scan_bwd_ref(*args0, dy0, dh0, chunk=chunk), iters=1),
+                   bound_ms=bound["ms"], bound_by=bound["by"], sfu_ms=bound["exp_unit_ms"])
+        print(f"  K10 {k10['shape']} (dt {dt0.dtype}, x {x0.dtype}, dy {dy0.dtype}): kernel_ms {k10['ms']:.5f}  "
+              f"plain_ms {k10['plain_ms']:.3f}  bound_ms {bound['ms']:.6f} ({bound['by']}; bytes {bound['bytes_ms']:.6f}, "
+              f"float32 ops {bound['ops_ms']:.6f}; partials {bound['partial_bytes'] / 1e6:.1f} MB not in the bound), "
+              f"SFU floor {bound['exp_unit_ms']:.6f}; kernel {k10['ms'] / bound['ms']:.3f}x the bound, "
+              f"{k10['ms'] / bound['exp_unit_ms']:.3f}x the SFU floor; K10 in all {k10['ms'] * cfg.num_layers:.2f} ms of "
+              f"a {train['full']['ms']:.1f} ms step (CUDA events)")
+    print(f"attention: K10 on hymba's layer 0 operands {k10['shape']} against its plain version: max abs err "
+          f"{k10_err:.3g} (tolerance {BWD_RTOL:g} of max per gradient)")
+    del layer0, args0, dt0, x0, b0, c0, a0, hstart0, dy0, dh0
+    free()
+
+    # 3. tinyllama: dense prefill, prefill against stepping, training
+    dcfg = config(DENSE_ARCH)
+    params = _cast(init_params(dcfg, seed=0, device=device), _dtype(dcfg))
+    dtokens = torch.randint(1, dcfg.vocab_size, (1, dense_prompt), generator=gen, device=device)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    logits, caches, _ = forward_prefill(dcfg, params, {"tokens": dtokens})
+    sync()
+    dense_s = time.perf_counter() - t0
+    check(counts() == want(), f"tinyllama prefill launched {counts()}")
+    check(tuple(logits.shape) == (1, dcfg.vocab_size) and bool(torch.isfinite(logits.float()).all()),
+          "tinyllama prefill logits not finite")
+    check(caches["sub0"]["k"].shape[2] == dense_prompt, f"tinyllama k cache {tuple(caches['sub0']['k'].shape)}")
+    dense_ms = time_ms(lambda: forward_prefill(dcfg, params, {"tokens": dtokens}), iters=3) if on_card else None
+    print(f"attention: {dcfg.name} ({dcfg.num_layers} layers, d={dcfg.d_model}, {dcfg.dtype}) forward_prefill (1, "
+          f"{dense_prompt}) on the dense path ({dense_prompt} <= {FULL_ATTENTION_THRESHOLD} keys) in "
+          f"{dense_s * 1e3:.1f} ms (first call), "
+          + (f"{dense_ms:.3f} ms (CUDA events, 3 calls)" if on_card else "not timed (CPU)") + "; no kernel launched")
+    del logits, caches
+    dprefill, ddecode = make_prefill_step(dcfg), make_decode_step(dcfg)
+    print(f"attention: {dcfg.name} " + _prefill_against_stepping(dcfg, params, dprefill, ddecode,
+                                                                    dtokens[:, :step_prompt], device))
+    del params
+    free()
+    state = init_train_state(dcfg, tcfg, seed=0, device=device)
+    state["step"].fill_(1)
+    dpipe = SyntheticLMPipeline(dcfg, 1, dense_prompt, PipelineConfig(seed=0))
+    step_fn = make_train_step(dcfg, tcfg)
+    losses, step_ms = [], []
+    reset_launches()
+    for i in range(1, steps + 1):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in dpipe.batch_at(i).items()}
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        state, m = step_fn(state, batch)
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]), f"tinyllama step {i}: loss {losses[-1]}")
+    check(counts() == want(), f"tinyllama training launched {counts()}")
+    dense_step = sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None
+    print(f"attention: {dcfg.name} {steps} train steps of (1, {dense_prompt}): losses {[round(x, 5) for x in losses]}"
+          + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}, {dense_step:.3f} ms per step after the "
+             f"first, {dense_prompt / dense_step * 1e3:.0f} tokens/s; peak memory {peak_gb()}" if on_card else
+             "; times and peak memory not measured (CPU)"))
+    del state
+    free()
+
+    # 4. the reduced configs on this device against the CPU
+    for arch in (ATTN_ARCH, DENSE_ARCH):
+        reduced_against_cpu(device, arch)
+
+    # 5. gemma3-12b serving: 9 wide rounds of K4 per sampled token
+    gcfg = config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(gcfg, seed=0, device=device)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"attention: {gcfg.name} ({gcfg.num_layers} layers in groups of {gcfg.layer_group}, d={gcfg.d_model}, "
+          f"vocab {gcfg.vocab_size}, {gcfg.dtype}), {gcfg.n_params() / 1e9:.2f} B parameters, {n_bytes / 1e9:.3f} GB "
+          f"of weights from seed 0 in {time.perf_counter() - t0:.2f} s")
+    engine = ServingEngine(gcfg, params, batch=1, max_seq=serve_prompt + serve_new + 2, seed=0, device=device)
+    del params
+    rng = np.random.default_rng(seed)
+    for uid in range(2):
+        engine.submit(Request(uid=uid, prompt=rng.integers(1, gcfg.vocab_size, size=serve_prompt).astype(np.int32),
+                              max_new_tokens=serve_new, temperature=0.8, topk=40))
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    report = engine.run_until_done()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    ids = [t for r in engine.done.values() for t in r.generated]
+    g_rounds = wide_rounds(gcfg.vocab_size, pick(gcfg.vocab_size)[0])
+    check(report.ok() and report.completed == 2 and len(ids) == 2 * serve_new, f"gemma3 serving: {report.statuses}")
+    check(all(0 <= t < gcfg.vocab_size for t in ids), f"gemma3 token out of range: {ids}")
+    expect = want(sort_round_kv=g_rounds * len(ids), sort_tiles_kv=len(ids))
+    check(launches == expect, f"gemma3 serving launched {launches}, want {expect}")
+    print(f"attention: {gcfg.name} served 2 requests of {serve_prompt} prompt tokens at batch 1, {len(ids)} sampled "
+          f"tokens in {seconds:.3f} s ({seconds * 1e3 / len(ids):.2f} ms/token, prefill by stepping included); K4 "
+          f"launched {launches['sort_round_kv']} times ({g_rounds} wide rounds per token: vocab {gcfg.vocab_size}), "
+          f"S1 {launches['sort_tiles_kv']}; ids {ids}")
+    del engine
+    free()
+    return {"k9": k9, "k10": k10, "prefill_s": prefill_s, "dense_step_ms": dense_step,
+            "gemma_k4": launches["sort_round_kv"]}
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -2080,6 +2503,7 @@ def main() -> int:
     ssm = phase_ssm()
     train = phase_train()
     print(f"train: {k10_regs}")
+    attention = phase_attention()
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -2102,10 +2526,12 @@ def main() -> int:
                               dict(k4["tiles_kv"], max_abs_err=max(merge_sort["sort_tiles_kv"]["max_abs_err"],
                                                                    k4["tiles_kv"]["max_abs_err"]))),
                         replaces="src/repro/kernels/ops.py:581"))
+    hymba = {key: {k: attention[key][k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "sfu_ms")}
+             for key in ("k9", "k10")}
     kernels.append(dict(entry("ssm_scan", "ssm_scan.cu", 79, ssm["launches"], ssm),
-                        replaces="src/repro/kernels/ssm_scan.py:79"))
+                        replaces="src/repro/kernels/ssm_scan.py:79", hymba=hymba["k9"]))
     kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
-                        replaces="src/repro/kernels/ssm_scan.py:157"))
+                        replaces="src/repro/kernels/ssm_scan.py:157", hymba=hymba["k10"]))
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
@@ -2129,7 +2555,10 @@ def main() -> int:
           "a and dy bfloat16; checkpoints every 32 steps), bound_ms of the function's own inputs and outputs (the "
           "partials of dB, dC and dA that K10's design adds are printed apart), "
           "library_ms null (no PyTorch call computes the recurrence's gradient), its launches those of the 3 "
-          "train steps at 16 layers (one per layer and step)")
+          "train steps at 16 layers (one per layer and step); the \"hymba\" object of ssm_scan and ssm_scan_bwd holds "
+          "the same numbers on layer 0's own operands of phase 9's hymba-1.5b prefill (1, 16384, 3200, 16) and first "
+          "train step (1, 4096, 3200, 16), sfu_ms the exponentials' floor, launches those of that prefill (one per "
+          "layer) and of the 3 train steps under remat_policy=\"full\" (one per layer and step)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

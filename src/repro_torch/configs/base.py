@@ -41,7 +41,7 @@ class ModelConfig:
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     shared_expert_ff: int = 0  # dense shared-expert MLP width (0 = none)
-    # MoE dispatch sort; the port serves dense and SSM models only so far
+    # MoE dispatch sort; the port runs the dense, SSM and hybrid families so far
     moe_dispatch: str = "merge_path"
 
     # --- SSM (mamba1) ---

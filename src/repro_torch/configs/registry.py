@@ -1,21 +1,28 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the architectures the port can serve are registered; the other
-families of the reference come with later slices (see ROADMAP.md).
+Only the architectures the port can serve are registered (the dense,
+SSM and hybrid families); the MoE, VLM and audio families of the
+reference come with later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import falcon_mamba_7b, tinyllama_1_1b
+from . import falcon_mamba_7b, gemma3_12b, hymba_1_5b, tinyllama_1_1b, yi_6b
 from .base import ModelConfig
 
-_MODULES = (tinyllama_1_1b, falcon_mamba_7b)
+_MODULES = (hymba_1_5b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
-ALIASES = {"tinyllama": "tinyllama-1.1b", "falcon-mamba": "falcon-mamba-7b"}
+ALIASES = {
+    "hymba": "hymba-1.5b",
+    "tinyllama": "tinyllama-1.1b",
+    "yi": "yi-6b",
+    "gemma3": "gemma3-12b",
+    "falcon-mamba": "falcon-mamba-7b",
+}
 
 
 def get_config(name: str) -> ModelConfig:

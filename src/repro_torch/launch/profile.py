@@ -8,7 +8,13 @@ decode step and one top-k sample of one vocab row through the K4 path.
 Then for full-width falcon-mamba-7b (fused scan, random weights), at the
 shapes of ``chip_smoke.py``'s SSM phase: one ``make_prefill_step`` of a
 (1, 32768) prompt (64 K9 launches) and one ``make_decode_step`` with its
-top-k sample.  Last, one ``make_train_step`` of falcon-mamba-7b at its
+top-k sample.  Then full-width hymba-1.5b (fused scan, random weights),
+one ``make_prefill_step`` of a (1, 16384) prompt (32 K9 launches; every
+layer on the blockwise attention, the prompt being past
+``FULL_ATTENTION_THRESHOLD``), split by kind of device operation:
+attention's einsums, the other matrix products, softmax, K9, the
+elementwise passes, copies and reductions, the shapes of ``chip_smoke.py``'s
+attention phase.  Last, one ``make_train_step`` of falcon-mamba-7b at its
 published widths cut to 16 of 64 layers (fused scan, float32 masters from
 seed 0) on a (1, 4096) batch of ``SyntheticLMPipeline``, the shapes of
 ``chip_smoke.py``'s training phase.
@@ -49,6 +55,7 @@ from repro_torch.train.steps import _cast
 
 ARCH, BATCH, MAX_SEQ, ITERS = "tinyllama-1.1b", 2, 64, 5
 SSM_ARCH, SSM_PROMPT = "falcon-mamba-7b", 32768
+HYBRID_ARCH, HYBRID_PROMPT = "hymba-1.5b", 16384
 TRAIN_LAYERS, TRAIN_SEQ = 16, 4096  # 16 of 64 layers: the float32 masters and moments of all 64 need 112 GB
 
 
@@ -71,10 +78,13 @@ def _trace(fn, iters: int) -> dict:
     for e in events:
         top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
     nodes: dict = {}
+    ops: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(_NODE):
-            name = e.name[len(_NODE):]
-            nodes[name] = nodes.get(name, 0.0) + e.device_time_total / 1e3 / iters
+        if e.device_type == torch.autograd.DeviceType.CPU:  # the kernels an operator launches itself
+            ops[e.name] = ops.get(e.name, 0.0) + e.self_device_time_total / 1e3 / iters
+            if e.name.startswith(_NODE):
+                name = e.name[len(_NODE):]
+                nodes[name] = nodes.get(name, 0.0) + e.device_time_total / 1e3 / iters
     return {
         "wall_ms": wall_ms,
         "busy_ms": busy_ms if events else None,
@@ -82,6 +92,7 @@ def _trace(fn, iters: int) -> dict:
         "top": sorted(top.items(), key=lambda kv: -kv[1])[:6],
         "by_name": top,
         "by_node": nodes,
+        "by_op": ops,
     }
 
 
@@ -122,9 +133,10 @@ def profile_train_step(cfg, tcfg: TrainConfig, state: dict, batch: dict) -> dict
 KINDS = (
     ("K10", ("ssm_scan_bwd",)),
     ("K9", ("ssm_scan_kernel",)),
-    ("matrix products", ("gemm", "nvjet", "cutlass", "sm90_")),
+    ("matrix products", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
     ("copies", ("direct_copy", "Memcpy", "Memset")),
-    ("reductions", ("reduce_kernel", "softmax", "logsumexp")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce_kernel", "logsumexp")),
     ("elementwise", ("elementwise",)),
 )
 
@@ -151,6 +163,27 @@ def report_train(r: dict) -> None:
     print(f"    backward nodes (remat's recompute included) {bwd:.3f} ms, the rest (forward, optimizer) "
           f"{r['busy_ms'] - bwd:.3f} ms; top nodes: " + ", ".join(
               f"{k} {ms:.3f} ms" for k, ms in sorted(r["by_node"].items(), key=lambda kv: -kv[1])[:8]))
+
+
+def profile_prefill(prefill, params: dict, tokens: torch.Tensor, cache_len: int) -> dict:
+    """Trace one ``make_prefill_step`` call: the report of :func:`_trace`
+    with the device ms by kind (``KINDS``), the matrix products split into
+    attention's einsums (the kernels ``aten::bmm`` launches itself) and
+    the rest."""
+    r = _trace(lambda: prefill(params, {"tokens": tokens}, cache_len), 1)
+    kinds = by_kind(r["by_name"])
+    bmm = r["by_op"].get("aten::bmm", 0.0)
+    r["kinds"] = {"attention einsums (aten::bmm)": bmm, "other matrix products": kinds.pop("matrix products") - bmm,
+                  **kinds}
+    return r
+
+
+def report_prefill(name: str, r: dict) -> None:
+    _report(name, r)
+    if r["busy_ms"] is None:
+        print("    by kind: not measured")
+        return
+    print("    by kind: " + ", ".join(f"{k} {ms:.3f} ms ({ms / r['busy_ms']:.3f})" for k, ms in r["kinds"].items()))
 
 
 def main_train() -> None:
@@ -196,6 +229,14 @@ def main() -> None:
 
     _report("decode step with its top-k sample", _trace(step, ITERS))
     del params, caches, logits
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), ssm_backend="fused")
+    params = _cast(init_params(cfg, seed=0, device="cuda"), _dtype(cfg))
+    tokens = torch.randint(1, cfg.vocab_size, (1, HYBRID_PROMPT), generator=gen, device="cuda")
+    print(f"{cfg.name} full width, fused scan, prompt (1, {HYBRID_PROMPT})")
+    report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, tokens, HYBRID_PROMPT + 16))
+    del params
     torch.cuda.empty_cache()
     main_train()
 

@@ -4,8 +4,9 @@
         --requests 6 --batch 2 --max-new 8 [--device cpu]
 
 Like the reference's ``repro.launch.serve`` it serves the reduced config
-with random weights from a seed; ``--device`` picks the device (the card
-by default).
+of ``--arch`` (tinyllama-1.1b, yi-6b, gemma3-12b, hymba-1.5b or
+falcon-mamba-7b, or their aliases) with random weights from a seed;
+``--device`` picks the device (the card by default).
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """End-to-end training loop on the port.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 60 --batch 8 --seq 64 [--device cpu]
 
 The reference's ``repro.launch.train`` loop: data pipeline -> train step
 -> checkpoint cadence -> restart on failure (the supervisor) -> straggler
-report.  It trains the reduced config by default (``--no-reduced`` for the
-published widths), on the fused selective scan (K9 forward, K10
-backward), on the card unless ``--device cpu``.  The SSM family only, until attention is ported; gradient
-compression (``--grad-compression``) comes with the parallel slice.
+report.  It trains the reduced config of ``--arch`` by default
+(``--no-reduced`` for the published widths: tinyllama-1.1b, yi-6b,
+gemma3-12b, hymba-1.5b or falcon-mamba-7b), with Mamba heads on the
+fused selective scan (K9 forward, K10 backward), on the card unless
+``--device cpu``.  Gradient compression (``--grad-compression``) comes
+with the parallel slice.
 Checkpoints go to ``build/train_ckpt`` under the checkout unless
 ``--ckpt-dir`` names another directory.
 """
@@ -33,7 +35,7 @@ DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="falcon-mamba")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -1,23 +1,30 @@
-"""Attention as plain tensor ops: projections, masked softmax, decode.
+"""Attention as plain tensor ops: full, blockwise (online softmax), sliding-window, decode.
 
-The PyTorch counterpart of the reference's ``repro/models/attention.py``
-for the dense decode path.  Layouts are the reference's: activations
-``(B, S, d)``, heads grouped as ``(B, S, K, G, hd)`` for grouped-query
-attention, and decode caches ``(B, S_cache, K, hd)`` per layer (a ring
-buffer when ``window > 0``).  The cache is updated in place, where the
-reference returns a new array: the caller's cache tensors are the state.
+The PyTorch counterpart of the reference's ``repro/models/attention.py``,
+in its einsum form (no library attention kernel).  Layouts are the
+reference's: activations ``(B, S, d)``, heads grouped as ``(B, S, K, G,
+hd)`` for grouped-query attention, and decode caches ``(B, S_cache, K,
+hd)`` per layer (a ring buffer when ``window > 0``).  Over a whole
+sequence, :func:`attention` takes the dense masked path up to
+``FULL_ATTENTION_THRESHOLD`` keys and :func:`_blockwise` past it (a loop
+over KV chunks with a float32 running max, denominator and accumulator).
+The decode cache is updated in place, where the reference returns a new
+array: the caller's cache tensors are the state.  Cross-attention (the
+reference's ``kv=``) comes with the audio slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .layers import apply_rope, make_rope
 
 NEG_INF = -1e30
+FULL_ATTENTION_THRESHOLD = 8192
 
 
 def qkv_proj(params: Dict, x: torch.Tensor, num_heads: int, num_kv: int, head_dim: int):
@@ -49,6 +56,100 @@ def _sdpa(q, k, v, mask, softcap: float) -> torch.Tensor:
     scores = torch.where(mask[None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def _blockwise(q, k, v, qpos, kind: str, window: int, prefix_len: int, chunk: int, softcap: float) -> torch.Tensor:
+    """Online softmax over KV chunks: ``q (B,Sq,K,G,hd)``, ``k/v (B,Sk,K,hd)
+    -> (B,Sq,K,G,hd)``.
+
+    The reference's ``lax.scan`` becomes a Python loop over the chunks.
+    The tail is padded to a whole chunk and masked by ``kpos < Sk``; the
+    running ``(max, denominator, accumulator)`` are float32.  Each chunk's
+    scores ``(B,K,G,Sq,chunk)`` float32 are freed before the next chunk's
+    are made.
+    """
+    b, sq, kh, g, hd = q.shape
+    sk = k.shape[1]
+    nchunks = -(-sk // chunk)
+    pad = nchunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float()
+    m_run = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kh, g, sq, hd), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        msk = _mask(qpos, kpos, kind, window, prefix_len) & (kpos < sk)[None, :]
+        kb = k[:, ci * chunk:(ci + 1) * chunk].float()
+        vb = v[:, ci * chunk:(ci + 1) * chunk].float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kb) / math.sqrt(hd)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(msk[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        del s
+        scale = torch.exp(m_run - m_new)
+        l_run = l_run * scale + torch.sum(p, dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vb)
+        m_run = m_new
+        del p, kb, vb
+    out = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,Sq,K,G,hd)
+
+
+def attention(
+    params: Dict,
+    x: torch.Tensor,
+    *,
+    num_heads: int,
+    num_kv: int,
+    head_dim: int,
+    rope_theta: float,
+    positions: torch.Tensor,  # (S,) absolute positions
+    kind: str = "causal",  # causal | full | prefix
+    window: int = 0,
+    prefix_len: int = 0,
+    chunk: int = 1024,
+    softcap: float = 0.0,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    force_blockwise: bool = False,
+) -> torch.Tensor:
+    """Self-attention over a whole sequence: ``x (B,S,d) -> (B,S,d)``.
+
+    Dense masked attention while the keys number at most
+    ``FULL_ATTENTION_THRESHOLD`` (and ``force_blockwise`` is off), the
+    blockwise online softmax past it.  ``kv`` (cross-attention) raises.
+    """
+    if kv is not None:
+        raise NotImplementedError("cross-attention (kv=) is ported with the audio slice, see ROADMAP.md")
+    return self_attention(
+        params, x, num_heads=num_heads, num_kv=num_kv, head_dim=head_dim, rope_theta=rope_theta,
+        positions=positions, kind=kind, window=window, prefix_len=prefix_len, chunk=chunk, softcap=softcap,
+        force_blockwise=force_blockwise,
+    )[0]
+
+
+def self_attention(params: Dict, x: torch.Tensor, *, num_heads: int, num_kv: int, head_dim: int, rope_theta: float,
+                   positions: torch.Tensor, kind: str, window: int, prefix_len: int, chunk: int, softcap: float,
+                   force_blockwise: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention`'s output with its rotated ``k`` and its ``v``
+    ``(B,S,K,hd)``, from which prefill fills the decode cache."""
+    b, s, _ = x.shape
+    g = num_heads // num_kv
+    q, k, v = qkv_proj(params, x, num_heads, num_kv, head_dim)
+    if rope_theta > 0:
+        sin, cos = make_rope(positions, head_dim, rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    qh = q.reshape(b, s, num_kv, g, head_dim)
+    if k.shape[1] <= FULL_ATTENTION_THRESHOLD and not force_blockwise:
+        out = _sdpa(qh, k, v, _mask(positions, positions, kind, window, prefix_len), softcap)
+    else:
+        out = _blockwise(qh, k, v, positions, kind, window, prefix_len, chunk, softcap)
+    return out.reshape(b, s, num_heads * head_dim) @ params["wo"], k, v
 
 
 def decode_attention(

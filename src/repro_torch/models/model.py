@@ -1,15 +1,16 @@
 """Top-level model API: embed -> layers -> logits, for training, prefill and decode.
 
 The PyTorch counterpart of the reference's ``repro/models/model.py`` for
-the dense and SSM families.  ``forward_decode`` walks the layers in a
+the dense, SSM and hybrid families.  ``forward_decode`` walks the layers in a
 Python loop (the reference scans them); caches keep the reference's
 layout, ``{"sub<i>": {...}}`` with a leading ``num_groups`` axis — ``k``
 and ``v`` ``(num_groups, B, cache_len, K, hd)`` for attention, ``conv``
 ``(num_groups, B, k-1, d_inner)`` and ``ssm`` ``(num_groups, B, d_inner,
 state)`` float32 for Mamba — and are updated in place.
-``forward_train`` and ``forward_prefill`` run the SSM family (on the fused
-scan kernels with ``ssm_backend="fused"``); attention comes with a later
-slice.
+``forward_train`` and ``forward_prefill`` run the whole sequence through
+:func:`~repro_torch.models.transformer.stack_forward` (the Mamba heads on
+the fused scan kernels with ``ssm_backend="fused"``).  The VLM prefix and
+the audio encoder come with a later slice.
 """
 
 from __future__ import annotations
@@ -65,59 +66,58 @@ def init_caches(
     return caches
 
 
-def _prepare_inputs(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
-    """Embed the tokens (modality prefixes and encoders come with their slices)."""
-    return _embed(cfg, params, torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device))
-
-
-def _check_ssm(cfg: ModelConfig) -> None:
+def _prepare_inputs(cfg: ModelConfig, params: Dict, batch: Dict):
+    """Embed the tokens: ``(x, positions, kind, prefix_len)``, the token
+    path of the reference (the VLM prefix and the audio encoder raise in
+    :func:`~repro_torch.models.transformer.check_family`)."""
     check_family(cfg)
-    if cfg.family != SSM:
-        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
+    x = _embed(cfg, params, torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device))
+    return x, torch.arange(x.shape[1], device=x.device), "causal", 0
 
 
 def forward_train(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
     """Logits ``(B, S, V)`` aligned with ``batch["labels"]``, from the
-    cache-free stack (rematerialised per layer group with ``cfg.remat``).
-
-    The SSM family only: a family with attention raises until attention
-    is ported (see ROADMAP.md).
-    """
-    _check_ssm(cfg)
-    x, _ = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch))
+    cache-free stack (rematerialised per layer group with ``cfg.remat``)."""
+    x, positions, kind, prefix_len = _prepare_inputs(cfg, params, batch)
+    x, _ = stack_forward(cfg, params["layers"], x, positions, kind=kind, prefix_len=prefix_len)
     return _logits(cfg, params, x)
 
 
 def forward_prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache_len: int = 0):
     """Run the prompt ``batch["tokens"] (B, S)``: ``(last-position logits
-    (B, V), caches, enc_kv)``, the caches in :func:`init_caches`' layout,
-    ready for :func:`forward_decode` at position ``S``; ``enc_kv`` is None.
+    (B, V), caches, enc_kv)``, the caches in :func:`init_caches`' layout
+    for ``cache_len`` (``S`` when 0), ready for :func:`forward_decode` at
+    position ``S``; ``enc_kv`` is None.
 
-    The SSM family only, whose caches have no length (``cache_len`` is
-    the attention caches'): a family with attention raises until
-    attention prefill is ported (see ROADMAP.md).
+    A global attention cache of exactly ``S`` clamps decode's first write
+    onto slot ``S - 1``, as in the reference: a caller that decodes on
+    passes a ``cache_len`` past the prompt.
     """
-    _check_ssm(cfg)
-    x, caches = stack_forward(cfg, params["layers"], _prepare_inputs(cfg, params, batch), collect_caches=True)
+    x, positions, kind, prefix_len = _prepare_inputs(cfg, params, batch)
+    x, caches = stack_forward(cfg, params["layers"], x, positions, kind=kind, prefix_len=prefix_len,
+                              collect_caches=True, cache_len=cache_len or x.shape[1])
     logits = _logits(cfg, params, x[:, -1:])[:, 0]
     return logits, caches, None
 
 
 def _layer_decode(cfg: ModelConfig, p: Dict, x, cache: Dict, pos, window: int):
+    """One layer, one token; the branches are summed into ``mix`` before
+    ``x + mix``, as in :func:`~repro_torch.models.transformer._layer_fwd`."""
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    mix = None
     if "attn" in p:
-        out, _, _ = attn_mod.decode_attention(
+        mix, _, _ = attn_mod.decode_attention(
             p["attn"], h, cache["k"], cache["v"], pos,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=window, softcap=cfg.attn_logit_softcap,
         )
-        x = x + out
     if "mamba" in p:
-        out, conv, ssm = ssm_mod.mamba_decode(p["mamba"], h, cache["conv"], cache["ssm"], cfg)
+        y, conv, ssm = ssm_mod.mamba_decode(p["mamba"], h, cache["conv"], cache["ssm"], cfg)
         cache["conv"].copy_(conv)
         cache["ssm"].copy_(ssm)
-        x = x + out
+        mix = y if mix is None else mix + y
+    x = x + mix
     if "ffn_norm" in p:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
     return x

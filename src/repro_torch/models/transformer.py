@@ -1,27 +1,31 @@
-"""Decoder stacks: parameter init, the per-layer layout, the prefill stack.
+"""Decoder stacks: parameter init, the per-layer layout, the prefill and training stack.
 
 The PyTorch counterpart of the reference's ``repro/models/transformer.py``
-for the dense and SSM families.  Parameters keep the reference's layout so
-that weights convert one to one (:mod:`repro_torch.convert`): every layer
-parameter is stacked on a leading ``num_layers`` axis, and layers are
-grouped in homogeneous groups of ``cfg.layer_group``.  The stack
-(:func:`stack_forward`) runs the SSM family, with the decode caches for
-prefill or without them for training (each layer group rematerialised in
-the backward with ``cfg.remat``); attention prefill and the other
-families (MoE, hybrid, VLM, audio) come with later slices.
+for the dense, SSM and hybrid families.  Parameters keep the reference's
+layout so that weights convert one to one (:mod:`repro_torch.convert`):
+every layer parameter is stacked on a leading ``num_layers`` axis, and
+layers are grouped in homogeneous groups of ``cfg.layer_group`` (gemma3 6:
+5 sliding-window layers and 1 global, hymba 8: 7 and 1, the others 1).
+The stack (:func:`stack_forward`) runs the layers with the decode caches
+for prefill, or without them for training (each layer group
+rematerialised in the backward per ``cfg.remat`` and
+``cfg.remat_policy``).  The MoE, VLM-prefix and encoder-decoder families
+come with later slices.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 
+from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .layers import dense_init, mlp_apply, mlp_init, rms_norm
 
@@ -34,7 +38,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this slice of the port does not run yet."""
-    if cfg.family not in (DENSE, SSM) or cfg.num_experts or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
+    if cfg.family not in (DENSE, SSM, HYBRID) or cfg.num_experts or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in a later slice, see ROADMAP.md"
         )
@@ -122,23 +126,64 @@ def unstack_layers(layers: Dict, n: int) -> List[Dict]:
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: ModelConfig, p: Dict, x: torch.Tensor, collect_cache: bool = False):
-    """One SSM-family layer over a whole sequence: ``(x', cache)``.  With
-    ``collect_cache`` the cache is ``{"conv", "ssm"}``, what decoding goes
-    on from; without it, it is empty.  Both run the one block body,
-    :func:`~repro_torch.models.ssm.mamba_block`."""
-    if "attn" in p:
-        raise NotImplementedError(f"{cfg.name}: attention prefill is ported in a later slice, see ROADMAP.md")
+def _layer_fwd(
+    cfg: ModelConfig,
+    p: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int,
+    kind: str,
+    prefix_len: int,
+    collect_cache: bool = False,
+    cache_len: int = 0,
+):
+    """One layer over a whole sequence: ``(x', cache)``.
+
+    The attention and Mamba branches read the same normed input and are
+    summed into ``mix`` before ``x + mix``, as in the reference (with two
+    branches in bfloat16, ``(x + attn) + mamba`` would round otherwise).
+    With ``collect_cache`` the cache is what decoding goes on from: ``k``
+    and ``v`` ``(B, clen, K, hd)``, ``clen = min(cache_len, window)`` on a
+    sliding-window layer (a ring: a prompt longer than the window wraps
+    onto slots ``position % clen``), and the Mamba ``conv`` and ``ssm``
+    states.  Without it the cache is empty.
+    """
     cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
-    if collect_cache:
-        y, cache["conv"], cache["ssm"] = _mamba_with_state(p["mamba"], h, cfg)
-    else:
-        y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
-    x = x + y
+    mix = None
+    if "attn" in p:
+        mix, k, v = attn_mod.self_attention(
+            p["attn"], h,
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, positions=positions, kind=kind, window=window,
+            prefix_len=prefix_len, chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap,
+            force_blockwise=cfg.train_attn_blockwise and x.shape[1] > 1024,
+        )
+        if collect_cache:
+            cache["k"], cache["v"] = _ring(k, positions, window, cache_len), _ring(v, positions, window, cache_len)
+        del k, v
+    if "mamba" in p:
+        if collect_cache:
+            y, cache["conv"], cache["ssm"] = _mamba_with_state(p["mamba"], h, cfg)
+        else:
+            y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
+        mix = y if mix is None else mix + y
+    x = x + mix
     if "ffn_norm" in p:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
     return x, cache
+
+
+def _ring(t: torch.Tensor, positions: torch.Tensor, window: int, cache_len: int) -> torch.Tensor:
+    """The decode cache of one layer from its ``(B, S, K, hd)`` keys or
+    values: the last ``min(S, clen)`` positions at slots ``position % clen``."""
+    b, s, kv, hd = t.shape
+    clen = min(cache_len, window) if window > 0 else cache_len
+    take = min(s, clen)
+    out = torch.zeros((b, clen, kv, hd), dtype=t.dtype, device=t.device)
+    out[:, positions[-take:] % max(clen, 1)] = t[:, -take:]
+    return out
 
 
 def _mamba_with_state(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -152,39 +197,66 @@ def _mamba_with_state(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch
     return out, conv_state.contiguous(), h_final
 
 
-def stack_forward(cfg: ModelConfig, layers: Dict, x: torch.Tensor, *, collect_caches: bool = False):
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: the reference's
+    ``dots_with_no_batch_dims_saveable`` on PyTorch's operators.  A
+    projection ``(B, S, d) @ (d, n)`` folds to ``aten.mm`` (``aten.addmm``
+    with a bias), whose output is saved; attention's einsums carry batch
+    dimensions and go to ``aten.bmm``, which is recomputed with every
+    other operator (norms, activations, the scan)."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def stack_forward(
+    cfg: ModelConfig,
+    layers: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    kind: str = "causal",
+    prefix_len: int = 0,
+    collect_caches: bool = False,
+    cache_len: int = 0,
+):
     """Run the layer stack in a Python loop (the reference scans it).
 
     Returns ``(x, caches)``.  With ``collect_caches`` (prefill) the caches
-    are in the decode layout ``{"sub<i>": {"conv", "ssm"}}``, each stacked
-    on a leading ``num_groups`` axis.  Without it (training) ``caches`` is
+    are in the decode layout ``{"sub<i>": {...}}``, each stacked on a
+    leading ``num_groups`` axis; sublayer ``i`` of every group has the
+    window ``_group_windows(cfg)[i]``.  Without it (training) ``caches`` is
     None, and with ``cfg.remat`` and grad mode on each layer group runs
-    under ``torch.utils.checkpoint``: its activations are dropped after the
-    forward and recomputed in the backward, as the reference's
-    ``jax.checkpoint`` of the scan body (``remat_policy="full"``; ``"dots"``
-    raises until it is ported).  The reference's positions and cache
-    length come with attention prefill.
+    under ``torch.utils.checkpoint``: with ``remat_policy="dots"`` the
+    outputs of its matrix products are kept and the rest is recomputed in
+    the backward (:func:`_dots_policy`); with ``"full"`` all of it is, as
+    the reference's ``jax.checkpoint`` of the scan body.
     """
     gp = cfg.layer_group
     ng = cfg.num_layers // gp
+    windows = _group_windows(cfg)
     per_layer = unstack_layers(layers, cfg.num_layers)
+    kw = dict(kind=kind, prefix_len=prefix_len)
     if collect_caches:
         collected: List[Dict[str, List[torch.Tensor]]] = [{} for _ in range(gp)]
         for g in range(ng):
             for i in range(gp):
-                x, cache = _layer_fwd(cfg, per_layer[g * gp + i], x, collect_cache=True)
+                x, cache = _layer_fwd(cfg, per_layer[g * gp + i], x, positions, window=windows[i],
+                                      collect_cache=True, cache_len=cache_len, **kw)
                 for name, t in cache.items():
                     collected[i].setdefault(name, []).append(t)
         return x, {f"sub{i}": {name: torch.stack(ts) for name, ts in c.items()} for i, c in enumerate(collected)}
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is ported in a later slice, see ROADMAP.md")
+    extra = {}
+    if remat and cfg.remat_policy == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
     def group(x, g):
         for i in range(gp):
-            x, _ = _layer_fwd(cfg, per_layer[g * gp + i], x)
+            x, _ = _layer_fwd(cfg, per_layer[g * gp + i], x, positions, window=windows[i], **kw)
         return x
 
     for g in range(ng):
-        x = checkpoint(group, x, g, use_reentrant=False) if remat else group(x, g)
+        x = checkpoint(group, x, g, use_reentrant=False, **extra) if remat else group(x, g)
     return x, None

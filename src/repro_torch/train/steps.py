@@ -144,9 +144,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 def make_prefill_step(cfg: ModelConfig):
     compute_dtype = _dtype(cfg)
 
-    def prefill_step(params: Dict, batch: Dict):
-        """``(last-position logits (B, V), caches)`` for ``batch["tokens"]``."""
-        logits, caches, _ = forward_prefill(cfg, _cast(params, compute_dtype), batch)
+    def prefill_step(params: Dict, batch: Dict, cache_len: int = 0):
+        """``(last-position logits (B, V), caches)`` for ``batch["tokens"]``,
+        the attention caches of ``cache_len`` (the prompt's length when 0)."""
+        logits, caches, _ = forward_prefill(cfg, _cast(params, compute_dtype), batch, cache_len)
         return logits, caches
 
     return prefill_step

@@ -111,6 +111,11 @@ def test_entry_points_refuse_a_silent_cpu(monkeypatch, weights):
 
 
 def test_other_families_wait_for_a_later_slice():
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), family="moe", num_experts=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_params(cfg, device="cpu")
+    base = get_config("tinyllama-1.1b").reduced()
+    for later in (dict(family="moe", num_experts=4), dict(family="vlm", num_prefix_tokens=8),
+                  dict(family="audio", encoder_layers=2, encoder_seq=24)):
+        cfg = dataclasses.replace(base, **later)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="later slice"):
+            init_caches(cfg, 1, 8, device="cpu")
