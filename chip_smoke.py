@@ -87,7 +87,22 @@ Phases (any failure raises, and the script exits non-zero):
    the card against the CPU; gemma3-12b at full width served by
    ``ServingEngine`` (2 requests at batch 1; 9 K4 launches and 1 S1 per
    sampled token);
-10. the ``kernels`` line, the card line and the result line.
+10. MoE (:func:`phase_moe`): moonshot-v1-16b-a3b at full width and all 48
+    layers (random weights from a seed, ``moe_dispatch="merge_path_pallas"``)
+    prefilled on a (1, 4096) prompt through ``make_prefill_step`` (each
+    layer's routing sort of 24576 slots: one S1 launch and 6 K4 rounds),
+    then 16 tokens sampled with top-k 40 through ``make_decode_step``
+    (each decode step one S1 launch a layer at chunk 8, each sample one S1
+    and 9 K4); S1 and K4 on layer 0's own routing keys bit for bit against
+    their plain versions, the three dispatch modes' positions equal, with
+    CUDA-event times of the dispatch, S1, K4 and a stable ``torch.sort`` of
+    the same keys; two prefills bit-identical; the prefill traced by kind;
+    prefill against stepping on layer 0's k and v; moonshot trained 3
+    steps of (1, 4096) at 4 of 48 layers; ``moe_apply``'s gradients on the
+    kernel route and the core route bit-identical; phi3.5-moe-42b-a6.6b at
+    full width cut to 8 of 32 layers prefilled and sampled; the reduced
+    moonshot and phi3.5-moe on the card against the CPU;
+11. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -2389,6 +2404,527 @@ def phase_attention(device: str = "cuda", reduce: bool = False, prompt: int = AT
             "gemma_k4": launches["sort_round_kv"]}
 
 
+MOE_ARCH, PHI_ARCH = "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"
+MOE_PROMPT, MOE_NEW, MOE_STEP_PROMPT = 4096, 16, 32
+MOE_TRAIN_LAYERS, MOE_STEPS = 4, 3  # moonshot trained at 4 of 48 layers: about 10.6 GB of state a layer
+PHI_LAYERS, PHI_NEW = 8, 8  # phi3.5-moe at 8 of 32 layers: 10.5 B parameters, 21 GB in bfloat16
+
+
+def _margin(probs, k: int) -> float:
+    """The least top-k margin of router probabilities ``(..., E)``: the k-th
+    largest less the next one, over the tokens (inf when k = E)."""
+    import torch
+
+    if k >= probs.shape[-1]:
+        return math.inf
+    srt = torch.sort(probs.float(), dim=-1, descending=True).values
+    return float((srt[..., k - 1] - srt[..., k]).min())
+
+
+def _routing(p, x, k: int):
+    """A MoE layer's routing of ``x (B, S, d)``: its flat expert ids ``(B, S *
+    k)`` int32 and its least top-k margin."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    _, top_e = moe_mod._router_topk(probs, k)
+    return top_e.reshape(x.shape[0], -1).to(torch.int32), _margin(probs, k)
+
+
+def moe_against_cpu(device: str, arch: str, prompt: int = 37) -> None:
+    """The reduced MoE config (float32, ``"merge_path_pallas"``) on ``device``
+    against the same weights on the CPU: every layer's routed experts
+    identical (a flip fails with its top-k margin), prefill logits and caches
+    within 1e-4, then 4 decode steps with greedy tokens identical (TF32 off,
+    as :func:`reduced_against_cpu`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+    from repro_torch.models import moe as moe_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), moe_dispatch="merge_path_pallas")
+    k = cfg.experts_per_token
+    cpu = init_params(cfg, seed=0, device="cpu")
+    dev = _to(cpu, device)
+    routed = []
+    margins = []
+    real = moe_mod._router_topk
+
+    def keep(probs, kk):
+        out = real(probs, kk)
+        routed.append((probs.detach().cpu(), out[1].cpu()))
+        return out
+
+    def both(run_cpu, run_dev, what):
+        routed.clear()
+        out_cpu = run_cpu()
+        on_cpu = list(routed)
+        routed.clear()
+        out_dev = run_dev()
+        check(len(on_cpu) == len(routed) == cfg.num_layers, f"reduced {arch} {what}: {len(on_cpu)} and {len(routed)} routings")
+        for layer, ((probs, ec), (_, ed)) in enumerate(zip(on_cpu, routed)):
+            margins.append(_margin(probs, k))
+            if not torch.equal(ec, ed):
+                at = tuple((ec != ed).any(-1).nonzero()[0].tolist())
+                check(False, f"reduced {arch} {what}: layer {layer} routes token {at} to experts {ed[at].tolist()} on "
+                             f"{device} and {ec[at].tolist()} on the CPU; top-k margin there {_margin(probs[at], k):.3g}")
+        return out_cpu, out_dev
+
+    moe_mod._router_topk = keep
+    try:
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt)))
+        cache_len = prompt + 4
+        (lc, cc, _), (lg, cg, _) = both(lambda: forward_prefill(cfg, cpu, {"tokens": tokens}, cache_len),
+                                        lambda: forward_prefill(cfg, dev, {"tokens": tokens.to(device)}, cache_len),
+                                        "prefill")
+        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} prefill logits differ: "
+              f"{float((lg.cpu() - lc).abs().max())}")
+        for sub, names in cc.items():
+            for name, t in names.items():
+                check(torch.allclose(cg[sub][name].cpu(), t, atol=1e-4, rtol=1e-4), f"reduced {arch} {sub}/{name} differs")
+        tok = lc.argmax(-1, keepdim=True)
+        for t in range(4):
+            pos = torch.full((2,), prompt + t)
+            (lc, _), (lg, _) = both(lambda: forward_decode(cfg, cpu, cc, tok, pos),
+                                    lambda: forward_decode(cfg, dev, cg, tok.to(device), pos.to(device)), f"decode {t}")
+            check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} decode logits differ at step "
+                  f"{t}: {float((lg.cpu() - lc).abs().max())}")
+            check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"reduced {arch} greedy tokens differ at step {t}")
+            tok = lc.argmax(-1, keepdim=True)
+    finally:
+        moe_mod._router_topk = real
+    print(f"reference: reduced {arch} ({cfg.num_layers} layers, {cfg.num_experts} experts top-{k}, prompt {prompt}, "
+          f"merge_path_pallas) on {device} matches the CPU: every layer's routed experts identical in the prefill and "
+          f"4 decode steps (least top-k margin {min(margins):.3g}), logits and caches within 1e-4, greedy tokens "
+          "identical")
+
+
+def phase_moe(device: str = "cuda", reduce: bool = False, card: str = "cpu", prompt: int = MOE_PROMPT,
+              new_tokens: int = MOE_NEW, step_prompt: int = MOE_STEP_PROMPT, train_layers: int = MOE_TRAIN_LAYERS,
+              train_seq: int = MOE_PROMPT, steps: int = MOE_STEPS, grad_seq: int = MOE_PROMPT,
+              phi_layers: int = PHI_LAYERS, phi_prompt: int = MOE_PROMPT, phi_new: int = PHI_NEW,
+              seed: int = 11) -> dict:
+    """The MoE family on the merge-path dispatch: moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b.
+
+    1. moonshot-v1-16b-a3b at full width and all 48 layers (random weights
+       from seed 0, ``moe_dispatch="merge_path_pallas"``), driven once with
+       every count at 0: ``make_prefill_step`` of a ``(1, prompt)`` prompt
+       (each layer's routing sort of ``prompt * 6`` slots: one S1 launch
+       and K4's wide rounds), then ``new_tokens`` tokens sampled with top-k
+       40 through ``make_decode_step`` (each decode step one S1 launch a
+       layer at chunk 8; each sample one S1 and K4's rounds over the
+       vocab).  The launch counts are read exactly.
+    2. Layer 0's own routing keys, of the prefill and of the first decode
+       step: S1 and every K4 round bit for bit against their plain
+       versions, ``ops.sort_kv_batched`` against
+       ``core.merge_sort_kv_batched``, and the positions of the three
+       dispatch modes (and of the ragged dispatch) equal; the dropped
+       slots and the top-k margin printed.  On the card: CUDA-event times
+       of the dispatch, S1, K4's rounds, their plain versions and a stable
+       ``torch.sort`` of the same keys, and of layer 0's ``moe_apply``; two
+       prefills bit-identical; the prefill traced by kind; layer 0's k and
+       v caches after a prefill of ``step_prompt`` tokens against as many
+       decode steps (upstream of any routing).
+    3. moonshot at full width cut to ``train_layers`` layers, ``steps``
+       train steps of ``(1, train_seq)`` under ``remat_policy="full"``
+       (the routing sort twice per layer and step: the forward and its
+       recompute).
+    4. ``moe_apply``'s loss and gradients on one full-width moonshot layer
+       at ``(1, grad_seq)``, ``"merge_path_pallas"`` against
+       ``"merge_path"``: bit-identical, every gradient nonzero.
+    5. phi3.5-moe-42b-a6.6b at full width cut to ``phi_layers`` layers:
+       prefill ``(1, phi_prompt)`` and ``phi_new`` sampled tokens, counts read.
+    6. The reduced moonshot and phi3.5-moe on this device against the CPU
+       (:func:`moe_against_cpu`).
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the configs are the reduced ones, the wrappers run their plain versions,
+    nothing is launched, timed or traced, and every check still runs.
+    Returns the ``"moe"`` objects of S1 and K4 for the ``kernels`` line.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import merge_sort_kv_batched
+    from repro_torch.core.batched import _pad_rows_pow2
+    from repro_torch.core.merge_path import max_sentinel
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
+    from repro_torch.kernels import WRAPPERS, ops, reset_launches
+    from repro_torch.kernels import merge_path as km
+    from repro_torch.kernels.ops import _narrow_chunk, _sort_tile
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import _dtype
+    from repro_torch.serving import topk_sample
+    from repro_torch.train import init_train_state, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train.smoke import leaf_report
+    from repro_torch.train.steps import _cast
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def config(arch, **kw):
+        base = get_config(arch)
+        return dataclasses.replace(base.reduced() if reduce else base, moe_dispatch="merge_path_pallas", **kw)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def want(**kw):
+        out = dict.fromkeys((fn.__name__ for fn in WRAPPERS), 0)
+        if on_card:
+            out.update(kw)
+        return out
+
+    def sort_launches(n: int):
+        """(S1, K4) launches of one routing sort of rows of n slots."""
+        return (1 if n > 1 else 0), wide_rounds(n, _sort_tile(n, None, None)[0])
+
+    def peak_gb():
+        return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if on_card else "not measured"
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # 1. moonshot serving at all 48 layers: prefill, then sampled tokens
+    cfg = config(MOE_ARCH)
+    nl, ne, k = cfg.num_layers, cfg.num_experts, cfg.experts_per_token
+    t0 = time.perf_counter()
+    params = _cast(init_params(cfg, seed=0, device=device), _dtype(cfg))  # once, as the engine does
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"moe: {cfg.name} ({nl} layers, d={cfg.d_model}, {cfg.num_heads} heads, {ne} experts top-{k} of d_ff "
+          f"{cfg.d_ff} and a shared expert of {cfg.shared_expert_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{cfg.moe_dispatch}), {cfg.n_params() / 1e9:.2f} B parameters, {n_bytes / 1e9:.3f} GB of weights from seed "
+          f"0 in {time.perf_counter() - t0:.2f} s ({card})")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    cache_len = prompt + new_tokens
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    layer0 = []  # layer 0's moe_apply operands: the prefill's, then the first decode step's
+    calls = [0]
+    real_apply = moe_mod.moe_apply
+
+    def keep_layer0(p, x, c, *args, **kw):
+        if calls[0] in (0, nl):
+            layer0.append((p, x.detach().clone()))
+        calls[0] += 1
+        return real_apply(p, x, c, *args, **kw)
+
+    moe_mod.moe_apply = keep_layer0
+    try:
+        free()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens}, cache_len)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = counts()
+        first_logits = logits.clone()
+        sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            pos = torch.full((1,), prompt + i, device=device)
+            logits, caches = decode(params, caches, sampled[-1][:, None], pos)
+            sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+        sync()
+        decode_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        moe_mod.moe_apply = real_apply
+    s1_pre, k4_pre = sort_launches(prompt * k)
+    s1_dec, k4_dec = sort_launches(k)
+    v_rounds = wide_rounds(cfg.vocab_size, _sort_tile(cfg.vocab_size, None, None)[0])
+    expect = want(sort_tiles_kv=nl * s1_pre, sort_round_kv=nl * k4_pre)
+    check(prefill_launches == expect, f"moonshot prefill launched {prefill_launches}, want {expect}")
+    expect = want(sort_tiles_kv=nl * s1_pre + (new_tokens - 1) * nl * s1_dec + new_tokens,
+                  sort_round_kv=nl * k4_pre + (new_tokens - 1) * nl * k4_dec + new_tokens * v_rounds)
+    check(launches == expect, f"moonshot serving path launched {launches}, want {expect}")
+    ids = torch.cat(sampled)
+    check(ids.shape == (new_tokens,) and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"sampled ids {ids.tolist()}")
+    check(bool(torch.isfinite(first_logits.float()).all()) and bool(torch.isfinite(logits.float()).all()),
+          "moonshot logits not finite")
+    check(tuple(caches["sub0"]["k"].shape) == (nl, 1, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim),
+          f"moonshot k cache {tuple(caches['sub0']['k'].shape)}")
+    print(f"moe: moonshot prefill (1, {prompt}), cache_len {cache_len}, in {prefill_s * 1e3:.1f} ms (the first call): "
+          f"{prompt * k} "
+          f"slots a layer, capacity {moe_mod.capacity(cfg, prompt)}; S1 launched {prefill_launches['sort_tiles_kv']} "
+          f"times ({s1_pre} a layer), K4 {prefill_launches['sort_round_kv']} ({k4_pre} a layer); {new_tokens} tokens "
+          f"sampled (top-k 40), {new_tokens - 1} decode steps in {decode_s * 1e3:.1f} ms "
+          f"({decode_s * 1e3 / max(1, new_tokens - 1):.2f} ms per step with its sample; S1 at chunk "
+          f"{1 << max(0, (k - 1).bit_length())} {s1_dec} a layer, the sample's S1 "
+          f"1 and K4 {v_rounds}); launches in all: S1 {launches['sort_tiles_kv']}, K4 {launches['sort_round_kv']}; "
+          f"peak memory {peak_gb()}; ids {ids.tolist()} ({card})")
+    del caches, logits
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, {"tokens": tokens}, cache_len)
+    sync()
+    prefill_s = time.perf_counter() - t0  # the first call's time holds the card's first use of its shapes
+    check(torch.equal(logits, first_logits), "two moonshot prefills of the same prompt differ")
+    print(f"moe: a second moonshot prefill in {prefill_s * 1e3:.1f} ms (host clock) gives bit-identical logits ({card})")
+    del logits, first_logits
+
+    # 2. layer 0's own routing keys: S1 and K4 against their plain versions, the sorts and the positions
+    moe_obj = {}
+    for what, (p0, x0) in zip(("prefill", "decode step"), layer0):
+        flat_e, margin = _routing(p0, x0, k)
+        b, n = flat_e.shape
+        tile, leaf = _sort_tile(n, None, None)
+        slots = torch.arange(n, dtype=torch.int32, device=device).expand(b, n)
+        kp = _pad_rows_pow2(flat_e, max_sentinel(torch.int32))
+        m = kp.shape[1]
+        kflat, vflat = kp.reshape(-1), _pad_rows_pow2(slots, 0).reshape(-1)
+        chunk, width = _narrow_chunk(m, tile, torch.int32)
+        got, ref = km.sort_tiles_kv(kflat, vflat, chunk), km.sort_tiles_kv_ref(kflat, vflat, chunk)
+        s1_err = max(bit_err(g, r, f"S1 on moonshot's layer 0 {what} keys, chunk {chunk}") for g, r in zip(got, ref))
+        kf = torch.cat([ref[0], torch.full((tile,), max_sentinel(torch.int32), dtype=torch.int32, device=device)])
+        vf = torch.cat([ref[1], torch.zeros((tile,), dtype=torch.int32, device=device)])
+        rounds = []
+        while width < m:
+            got, ref = km.sort_round_kv(kf, vf, width, tile=tile, leaf=leaf), km.sort_round_kv_ref(kf, vf, width, tile=tile)
+            for g, r in zip(got, ref):
+                bit_err(g, r, f"K4 on moonshot's layer 0 {what} keys, width {width}")
+            rounds.append((kf, vf, width))
+            kf, vf = ref
+            width *= 2
+        ks, vs = ops.sort_kv_batched(flat_e, slots)
+        kc, vc = merge_sort_kv_batched(flat_e, slots)
+        check(torch.equal(ks, kc) and torch.equal(vs, vc), f"ops.sort_kv_batched differs from the core sort on {what} keys")
+        check(torch.equal(ks.reshape(-1), kf[:n]) and torch.equal(vs.reshape(-1), vf[:n]),
+              f"the rounds' last output differs from ops.sort_kv_batched on {what} keys")
+        pos = moe_mod._positions_merge_path_batched(flat_e, ne, backend="pallas")
+        check(torch.equal(pos, moe_mod._positions_merge_path_batched(flat_e, ne, backend="core")) and
+              torch.equal(pos, moe_mod._positions_cumsum(flat_e, ne)),
+              f"dispatch positions of the three modes differ on {what} keys")
+        lens = torch.tensor([n // 2 + 1], dtype=torch.int32, device=device)
+        rag = moe_mod._positions_merge_path_batched(flat_e, ne, lens, backend="pallas")
+        cum = moe_mod._positions_cumsum(flat_e, ne)
+        cum = torch.where(torch.arange(n, device=device)[None, :] < lens[:, None], cum, 2 ** 30)
+        check(torch.equal(rag, moe_mod._positions_merge_path_batched(flat_e, ne, lens, backend="core")) and
+              torch.equal(rag, cum), f"ragged dispatch positions differ on {what} keys")
+        cap = moe_mod.capacity(cfg, x0.shape[1])
+        print(f"moe: moonshot's layer 0 {what} routing keys ({b}, {n}), {int(torch.unique(flat_e).numel())} experts "
+              f"used: S1 (chunk {chunk}) and {len(rounds)} K4 rounds bit-identical to their plain versions; "
+              f"ops.sort_kv_batched equal to the core sort; positions of merge_path_pallas, merge_path and cumsum "
+              f"equal (and ragged at {int(lens)} slots); {int((pos >= cap).sum())} of {n} slots dropped at capacity "
+              f"{cap}; least top-k margin {margin:.3g}")
+        if what != "prefill":
+            continue
+        s1_bound, k4_bound = tiles_bound(m, 4, values=True), [round_bound(m, 4) for _ in rounds]
+        moe_obj = {
+            "sort_tiles_kv": {"launches": prefill_launches["sort_tiles_kv"], "max_abs_err": s1_err, "ms": None,
+                              "plain_ms": None, "bound_ms": s1_bound["ms"], "bound_by": s1_bound["by"],
+                              "library_ms": None},
+            "sort_round_kv": {"launches": prefill_launches["sort_round_kv"], "max_abs_err": 0, "ms": None,
+                              "plain_ms": None, "bound_ms": sum(r["ms"] for r in k4_bound),
+                              "bound_by": k4_bound[0]["by"] if k4_bound else None, "library_ms": None},
+        }
+        if not on_card:
+            continue
+        s1, k4 = moe_obj["sort_tiles_kv"], moe_obj["sort_round_kv"]
+        # calls that launch many kernels are timed in few iterations: the host must enqueue them all
+        # while time_ms's sleep kernel holds the card (about 30 us a launch, 10 ms of sleep)
+        s1.update(ms=time_ms(lambda: km.sort_tiles_kv(kflat, vflat, chunk)),
+                  plain_ms=time_ms(lambda: km.sort_tiles_kv_ref(kflat, vflat, chunk), iters=1),
+                  library_ms=time_ms(lambda: torch.gather(vflat.view(-1, chunk), 1, torch.sort(
+                      kflat.view(-1, chunk), dim=1, stable=True).indices)))
+        k4.update(ms=0.0, plain_ms=0.0, library_ms=0.0)
+        for kf, vf, w in rounds:
+            k4["ms"] += time_ms(lambda: km.sort_round_kv(kf, vf, w, tile=tile, leaf=leaf))
+            k4["plain_ms"] += time_ms(lambda: km.sort_round_kv_ref(kf, vf, w, tile=tile), iters=3)
+            pairs, vals = kf[:m].view(-1, 2 * w), vf[:m].view(-1, 2 * w)
+            k4["library_ms"] += time_ms(lambda: torch.gather(vals, 1, torch.sort(pairs, dim=1, stable=True).indices))
+        dispatch_ms = time_ms(lambda: moe_mod._positions_merge_path_batched(flat_e, ne, backend="pallas"), iters=4)
+        core_ms = time_ms(lambda: moe_mod._positions_merge_path_batched(flat_e, ne, backend="core"), iters=1)
+        sort_ms = time_ms(lambda: ops.sort_kv_batched(flat_e, slots), iters=10)
+        torch_ms = time_ms(lambda: torch.sort(flat_e, dim=1, stable=True))
+        apply_ms = time_ms(lambda: moe_mod.moe_apply(p0, x0, cfg), iters=2)
+        print(f"  S1 kv on layer 0's prefill keys ({m},) int32, chunk {chunk}: kernel_ms {s1['ms']:.5f}  plain_ms "
+              f"{s1['plain_ms']:.5f}  library_ms {s1['library_ms']:.5f}  bound_ms {s1['bound_ms']:.6f} "
+              f"({s1['bound_by']}) ({card})")
+        print(f"  K4's {len(rounds)} rounds on them (widths {chunk} ... {m // 2}): kernel_ms {k4['ms']:.5f}  plain_ms "
+              f"{k4['plain_ms']:.5f}  library_ms {k4['library_ms']:.5f}  bound_ms {k4['bound_ms']:.6f} "
+              f"({k4['bound_by']}) ({card})")
+        print(f"  dispatch of layer 0 (sort and positions, merge_path_pallas) {dispatch_ms:.5f} ms, of which "
+              f"ops.sort_kv_batched {sort_ms:.5f} ms (S1 and K4 {s1['ms'] + k4['ms']:.5f}); merge_path's plain sort "
+              f"{core_ms:.5f} ms; one stable torch.sort of the same keys {torch_ms:.5f} ms; layer 0's whole moe_apply "
+              f"(1, {prompt}, {cfg.d_model}) {apply_ms:.4f} ms, the dispatch {dispatch_ms / apply_ms:.4f} of it; "
+              f"S1 and K4 {(s1['ms'] + k4['ms']) * nl:.4f} ms of the {prefill_s * 1e3:.1f} ms prefill (CUDA events, "
+              f"{card})")
+        moe_obj.update(dispatch_ms=dispatch_ms, core_dispatch_ms=core_ms, torch_sort_ms=torch_ms, apply_ms=apply_ms)
+    del layer0, p0, x0  # layer 0's parameters are views that hold the whole stack
+
+    if on_card:
+        from repro_torch.launch.profile import profile_prefill, report_prefill
+
+        report_prefill(f"moe: moonshot prefill (1, {prompt}) traced ({card})",
+                       profile_prefill(prefill, params, tokens, cache_len))
+    print("moe: moonshot " + _prefill_against_stepping(cfg, params, prefill, decode, tokens[:, :step_prompt], device))
+    del params
+    free()
+
+    # 3. moonshot training, cut in depth
+    tc = config(MOE_ARCH, num_layers=train_layers)
+    tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0)
+    t0 = time.perf_counter()
+    state = init_train_state(tc, tcfg, seed=0, device=device)
+    state["step"].fill_(1)
+    sync()
+    print(f"moe: training {tc.name} at {'reduced' if reduce else 'full'} width, {train_layers} of "
+          f"{get_config(MOE_ARCH).num_layers} layers: "
+          f"{sum(t.numel() for t in _leaves(state['params'])) / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(state)) / 1e9:.2f} GB of float32 masters and moments in "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    pipe = SyntheticLMPipeline(tc, 1, train_seq, PipelineConfig(seed=0))
+    batches = [{kk: torch.as_tensor(v, device=device) for kk, v in pipe.batch_at(i).items()} for i in range(1, steps + 1)]
+    before = _fingerprints(state["params"])
+    step_fn = make_train_step(tc, tcfg)
+    losses, step_ms = [], []
+    free()
+    reset_launches()
+    sync()
+    for i, batch in enumerate(batches):
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        state, mt = step_fn(state, batch)
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(mt["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(float(mt["grad_norm"])),
+              f"moonshot train step {i + 1}: loss {losses[-1]}, grad norm {float(mt['grad_norm'])}")
+    sync()
+    launches = counts()
+    s1_t, k4_t = sort_launches(train_seq * k)
+    expect = want(sort_tiles_kv=2 * train_layers * s1_t * steps, sort_round_kv=2 * train_layers * k4_t * steps)
+    check(launches == expect, f"moonshot training launched {launches}, want {expect}")
+    still = [name for (name, _, _), a, bb in zip(leaf_report(state["params"]), before, _fingerprints(state["params"]))
+             if torch.equal(a, bb)]
+    check(not still, f"moonshot parameters did not move: {still}")
+    train_ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None
+    print(f"moe: moonshot {steps} train steps of (1, {train_seq}) at {train_layers} layers, remat_policy="
+          f"{tc.remat_policy!r}: losses {[round(x, 5) for x in losses]}; S1 launched {launches['sort_tiles_kv']} times, "
+          f"K4 {launches['sort_round_kv']} ({launches['sort_tiles_kv'] // steps} and "
+          f"{launches['sort_round_kv'] // steps} a step: the forward and its recompute)"
+          + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}, {train_ms:.3f} ms per step after the first, "
+             f"{train_seq / train_ms * 1e3:.0f} tokens/s; peak memory {peak_gb()} ({card})" if on_card else
+             "; times and peak memory not measured (CPU)"))
+    del state, batches
+    free()
+
+    # 4. the card against itself: moe_apply's gradients on the kernel route and the core route
+    gcfg = config(MOE_ARCH)
+    ggen = torch.Generator(device=device)
+    ggen.manual_seed(seed)
+    gp = _cast(moe_mod.moe_init(ggen, gcfg, _dtype(gcfg)), _dtype(gcfg))
+    gx = (torch.randn((1, grad_seq, gcfg.d_model), generator=ggen, device=device)).to(_dtype(gcfg))
+    names = [name for name, _, _ in leaf_report(gp)]
+
+    def grads(dispatch):
+        leaves = [t.detach().requires_grad_() for t in _leaves(gp)]
+        it = iter(leaves)
+        tree = {kk: ({k2: next(it) for k2 in v} if isinstance(v, dict) else next(it)) for kk, v in gp.items()}
+        xx = gx.detach().requires_grad_()
+        reset_launches()
+        loss = (moe_mod.moe_apply(tree, xx, dataclasses.replace(gcfg, moe_dispatch=dispatch)).float() ** 2).sum()
+        out = torch.autograd.grad(loss, leaves + [xx])
+        sync()
+        return loss.detach(), out, counts()
+
+    lk, gk, kc = grads("merge_path_pallas")
+    lo, go, oc = grads("merge_path")
+    s1_g, k4_g = sort_launches(grad_seq * k)
+    check(kc == want(sort_tiles_kv=s1_g, sort_round_kv=k4_g) and oc == want(),
+          f"moe_apply's gradient runs launched {kc} (kernel route) and {oc} (core route)")
+    check(torch.equal(lk, lo), f"moe_apply loss {float(lk)} on merge_path_pallas, {float(lo)} on merge_path")
+    for name, a, bb in zip(names + ["x"], gk, go):
+        check(torch.equal(a, bb), f"moe_apply gradient {name} differs between merge_path_pallas and merge_path")
+        check(bool((a != 0).any()) and bool(torch.isfinite(a).all()), f"moe_apply gradient {name} zero or not finite")
+    print(f"moe: moe_apply of one {'reduced' if reduce else 'full-width'} moonshot layer at (1, {grad_seq}): loss and "
+          f"{len(gk)} gradients "
+          f"bit-identical on merge_path_pallas (S1 {kc['sort_tiles_kv']}, K4 {kc['sort_round_kv']} launches) and "
+          f"merge_path (none), every gradient nonzero ({card})")
+    del gp, gx, gk, go
+    free()
+
+    # 5. phi3.5-moe at full width cut in depth: prefill and sampled tokens
+    pcfg = config(PHI_ARCH, num_layers=phi_layers)
+    pk = pcfg.experts_per_token
+    t0 = time.perf_counter()
+    params = _cast(init_params(pcfg, seed=0, device=device), _dtype(pcfg))
+    sync()
+    print(f"moe: {pcfg.name} at {'reduced' if reduce else 'full'} width (d={pcfg.d_model}, {pcfg.num_heads} heads / "
+          f"{pcfg.num_kv_heads} kv, "
+          f"{pcfg.num_experts} experts top-{pk} of d_ff {pcfg.d_ff}, vocab {pcfg.vocab_size}), {phi_layers} of "
+          f"{get_config(PHI_ARCH).num_layers} layers: {pcfg.n_params() / 1e9:.2f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f} GB of weights in "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    pprefill, pdecode = make_prefill_step(pcfg), make_decode_step(pcfg)
+    ptokens = torch.randint(1, pcfg.vocab_size, (1, phi_prompt), generator=gen, device=device)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = pprefill(params, {"tokens": ptokens}, phi_prompt + phi_new)
+    sync()
+    phi_prefill_s = time.perf_counter() - t0
+    pre = counts()
+    sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+    sync()
+    t0 = time.perf_counter()
+    for i in range(phi_new - 1):
+        logits, caches = pdecode(params, caches, sampled[-1][:, None], torch.full((1,), phi_prompt + i, device=device))
+        sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+    sync()
+    phi_decode_s = time.perf_counter() - t0
+    launches = counts()
+    s1_p, k4_p = sort_launches(phi_prompt * pk)
+    s1_pd, k4_pd = sort_launches(pk)
+    pv = wide_rounds(pcfg.vocab_size, _sort_tile(pcfg.vocab_size, None, None)[0])
+    expect = want(sort_tiles_kv=phi_layers * s1_p, sort_round_kv=phi_layers * k4_p)
+    check(pre == expect, f"phi3.5-moe prefill launched {pre}, want {expect}")
+    expect = want(sort_tiles_kv=phi_layers * (s1_p + (phi_new - 1) * s1_pd) + phi_new,
+                  sort_round_kv=phi_layers * (k4_p + (phi_new - 1) * k4_pd) + phi_new * pv)
+    check(launches == expect, f"phi3.5-moe serving path launched {launches}, want {expect}")
+    ids = torch.cat(sampled)
+    check(bool(torch.isfinite(logits.float()).all()) and bool(((ids >= 0) & (ids < pcfg.vocab_size)).all()),
+          f"phi3.5-moe logits not finite or ids {ids.tolist()}")
+    print(f"moe: phi3.5-moe prefill (1, {phi_prompt}) in {phi_prefill_s * 1e3:.1f} ms ({phi_prompt * pk} slots a layer: "
+          f"S1 {pre['sort_tiles_kv']}, K4 {pre['sort_round_kv']} launches, {k4_p} rounds a layer); {phi_new} tokens "
+          f"sampled, {phi_new - 1} decode steps in {phi_decode_s * 1e3:.1f} ms "
+          f"({phi_decode_s * 1e3 / max(1, phi_new - 1):.2f} ms per step with its sample); launches in all: S1 "
+          f"{launches['sort_tiles_kv']}, K4 {launches['sort_round_kv']}; peak memory {peak_gb()}; ids {ids.tolist()} "
+          f"({card})")
+    del params, caches, logits
+    free()
+
+    # 6. the reduced configs on this device against the CPU
+    for arch in (PHI_ARCH, MOE_ARCH):
+        moe_against_cpu(device, arch)
+    return {**moe_obj, "prefill_s": prefill_s, "decode_ms": decode_s * 1e3 / max(1, new_tokens - 1),
+            "train_ms": train_ms, "phi_prefill_s": phi_prefill_s}
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -2504,6 +3040,7 @@ def main() -> int:
     train = phase_train()
     print(f"train: {k10_regs}")
     attention = phase_attention()
+    moe = phase_moe(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -2532,6 +3069,9 @@ def main() -> int:
                         replaces="src/repro/kernels/ssm_scan.py:79", hymba=hymba["k9"]))
     kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
                         replaces="src/repro/kernels/ssm_scan.py:157", hymba=hymba["k10"]))
+    for k in kernels:  # S1 and K4 on moonshot's routing keys
+        if k["name"] in ("sort_round_kv", "sort_tiles_kv"):
+            k["moe"] = moe[k["name"]]
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
@@ -2558,7 +3098,12 @@ def main() -> int:
           "train steps at 16 layers (one per layer and step); the \"hymba\" object of ssm_scan and ssm_scan_bwd holds "
           "the same numbers on layer 0's own operands of phase 9's hymba-1.5b prefill (1, 16384, 3200, 16) and first "
           "train step (1, 4096, 3200, 16), sfu_ms the exponentials' floor, launches those of that prefill (one per "
-          "layer) and of the 3 train steps under remat_policy=\"full\" (one per layer and step)")
+          "layer) and of the 3 train steps under remat_policy=\"full\" (one per layer and step); the \"moe\" object of "
+          "sort_round_kv and sort_tiles_kv holds their numbers on layer 0's own routing keys of phase 10's "
+          "moonshot-v1-16b-a3b prefill (1, 4096): 24576 (expert id, slot) int32 pairs padded to 32768, S1 one call "
+          "at chunk 512 (library_ms the chunks' stable torch.sort and the gather of the slots), K4 the sums over "
+          "its 6 wide rounds (library_ms each round's stable torch.sort of its pair view and the gather), launches "
+          "those of that prefill (one S1 and 6 K4 per layer, 48 layers)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,11 @@ class ModelConfig:
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     shared_expert_ff: int = 0  # dense shared-expert MLP width (0 = none)
-    # MoE dispatch sort; the port runs the dense, SSM and hybrid families so far
+    # the routing sort of MoE dispatch, the reference's three values:
+    # "merge_path" (the plain batched sort of repro_torch.core:
+    # merge_sort_kv_batched{,_ragged}) | "merge_path_pallas" (the hand-written
+    # tile sort S1 and sort round K4 through repro_torch.kernels.ops.sort_kv_batched)
+    # | "cumsum" (one-hot cumsum positions, the ablation)
     moe_dispatch: str = "merge_path"
 
     # --- SSM (mamba1) ---

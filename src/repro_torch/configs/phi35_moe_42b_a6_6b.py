@@ -1,0 +1,24 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2
+[hf:microsoft/Phi-3.5-MoE-instruct; hf].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=6400 (per expert) vocab=32064,
+MoE 16e top-2.  Merge-path sorted dispatch.  41.74 B parameters, 83.5 GB
+in bfloat16: more than one 80 GB card holds, so it runs there cut in depth.
+"""
+
+from .base import ModelConfig, MOE
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family=MOE,
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,
+    vocab_size=32064,
+    num_experts=16,
+    experts_per_token=2,
+    capacity_factor=1.25,
+)

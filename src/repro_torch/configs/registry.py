@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 Only the architectures the port can serve are registered (the dense,
-SSM and hybrid families); the MoE, VLM and audio families of the
+SSM, hybrid and MoE families); the VLM and audio families of the
 reference come with later slices (see ROADMAP.md).
 """
 
@@ -9,15 +9,18 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import falcon_mamba_7b, gemma3_12b, hymba_1_5b, tinyllama_1_1b, yi_6b
+from . import falcon_mamba_7b, gemma3_12b, hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b
 from .base import ModelConfig
 
-_MODULES = (hymba_1_5b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b)
+_MODULES = (hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
 ALIASES = {
     "hymba": "hymba-1.5b",
+    "moonshot": "moonshot-v1-16b-a3b",
+    "phi35-moe": "phi3.5-moe-42b-a6.6b",
+    "phi3.5-moe": "phi3.5-moe-42b-a6.6b",
     "tinyllama": "tinyllama-1.1b",
     "yi": "yi-6b",
     "gemma3": "gemma3-12b",

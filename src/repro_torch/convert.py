@@ -31,7 +31,11 @@ def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def from_jax_params(
     cfg: ModelConfig, tree: Dict, device: Optional[Union[str, torch.device]] = None
 ) -> Dict:
-    """The reference's parameter tree (numpy leaves) as port parameters on ``device``."""
+    """The reference's parameter tree (numpy leaves) as port parameters on ``device``.
+
+    Every leaf keeps its dtype: a MoE layer's ``moe`` leaves carry over as
+    they are, the router in float32 beside bfloat16 experts, as the
+    reference's tree has it."""
     check_family(cfg)
     dev = resolve_device(device)
 

@@ -14,7 +14,13 @@ layer on the blockwise attention, the prompt being past
 ``FULL_ATTENTION_THRESHOLD``), split by kind of device operation:
 attention's einsums, the other matrix products, softmax, K9, the
 elementwise passes, copies and reductions, the shapes of ``chip_smoke.py``'s
-attention phase.  Last, one ``make_train_step`` of falcon-mamba-7b at its
+attention phase.  Then full-width moonshot-v1-16b-a3b (all 48 layers,
+random weights, ``moe_dispatch="merge_path_pallas"``), one
+``make_prefill_step`` of a (1, 4096) prompt (one S1 and 6 K4 launches a
+layer for the routing sort), split the same way with the MoE layer's
+kinds apart: S1, K4, the expert einsums, the dispatch and combine
+gathers and scatters, and the routing, the shapes of ``chip_smoke.py``'s
+MoE phase.  Last, one ``make_train_step`` of falcon-mamba-7b at its
 published widths cut to 16 of 64 layers (fused scan, float32 masters from
 seed 0) on a (1, 4096) batch of ``SyntheticLMPipeline``, the shapes of
 ``chip_smoke.py``'s training phase.
@@ -56,6 +62,7 @@ from repro_torch.train.steps import _cast
 ARCH, BATCH, MAX_SEQ, ITERS = "tinyllama-1.1b", 2, 64, 5
 SSM_ARCH, SSM_PROMPT = "falcon-mamba-7b", 32768
 HYBRID_ARCH, HYBRID_PROMPT = "hymba-1.5b", 16384
+MOE_ARCH, MOE_PROMPT = "moonshot-v1-16b-a3b", 4096
 TRAIN_LAYERS, TRAIN_SEQ = 16, 4096  # 16 of 64 layers: the float32 masters and moments of all 64 need 112 GB
 
 
@@ -72,19 +79,23 @@ def _trace(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device activities; a range of models/moe.py also shows on the device timeline, around its kernels
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(_MOE_RANGE)]
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / iters  # profiler times are us
     top: dict = {}
     for e in events:
         top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
     nodes: dict = {}
-    ops: dict = {}
+    linked = []  # (kernel, the operator that launched it, its MoE range, ms)
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU:  # the kernels an operator launches itself
-            ops[e.name] = ops.get(e.name, 0.0) + e.self_device_time_total / 1e3 / iters
+        if e.device_type == torch.autograd.DeviceType.CPU:
             if e.name.startswith(_NODE):
                 name = e.name[len(_NODE):]
                 nodes[name] = nodes.get(name, 0.0) + e.device_time_total / 1e3 / iters
+            if e.kernels:
+                moe_range = next((a.name for a in _ancestors(e) if a.name.startswith(_MOE_RANGE)), None)
+                linked += [(k.name, e.name, moe_range, k.duration / 1e3 / iters) for k in e.kernels]
     return {
         "wall_ms": wall_ms,
         "busy_ms": busy_ms if events else None,
@@ -92,11 +103,19 @@ def _trace(fn, iters: int) -> dict:
         "top": sorted(top.items(), key=lambda kv: -kv[1])[:6],
         "by_name": top,
         "by_node": nodes,
-        "by_op": ops,
+        "linked": linked,
     }
 
 
 _NODE = "autograd::engine::evaluate_function: "
+_MOE_RANGE = "moe."  # the prefix of the profiler ranges models/moe.py opens
+
+
+def _ancestors(e):
+    """``e`` and the CPU ranges that enclose it, innermost first."""
+    while e is not None:
+        yield e
+        e = e.cpu_parent
 
 
 def _report(name: str, r: dict) -> None:
@@ -133,20 +152,26 @@ def profile_train_step(cfg, tcfg: TrainConfig, state: dict, batch: dict) -> dict
 KINDS = (
     ("K10", ("ssm_scan_bwd",)),
     ("K9", ("ssm_scan_kernel",)),
+    ("S1", ("sort_tiles_kernel",)),
+    ("K3/K4", ("sort_round_seg_kernel",)),
     ("matrix products", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
     ("copies", ("direct_copy", "Memcpy", "Memset")),
-    ("softmax", ("softmax",)),
+    ("softmax", ("softmax", "SoftMax")),
     ("reductions", ("reduce_kernel", "logsumexp")),
     ("elementwise", ("elementwise",)),
 )
+
+
+def kind_of(name: str) -> str:
+    """The kind (``KINDS``) of a device activity, by its name; "other" if none."""
+    return next((k for k, pats in KINDS if any(p in name for p in pats)), "other")
 
 
 def by_kind(by_name: dict) -> dict:
     """Device ms per kind of activity (``KINDS``; the rest under "other")."""
     out = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
     for name, ms in by_name.items():
-        kind = next((k for k, pats in KINDS if any(p in name for p in pats)), "other")
-        out[kind] += ms
+        out[kind_of(name)] += ms
     return out
 
 
@@ -165,16 +190,51 @@ def report_train(r: dict) -> None:
               f"{k} {ms:.3f} ms" for k, ms in sorted(r["by_node"].items(), key=lambda kv: -kv[1])[:8]))
 
 
+# the kinds of a prefill: each kernel by the operator that launched it, the MoE
+# layer's by the range of models/moe.py that holds it, the rest by its name
+PREFILL_KINDS = ("S1", "K4", "K3", "K9", "MoE expert einsums", "MoE dispatch and combine (gathers, scatters)",
+                 "MoE routing (router, top-k, positions)", "attention einsums (aten::bmm)", "other matrix products",
+                 "softmax", "elementwise", "copies", "reductions", "other")
+
+
+def prefill_kind(kernel: str, op, moe_range) -> str:
+    """The ``PREFILL_KINDS`` entry of one kernel launched by ``op`` inside
+    the MoE range ``moe_range`` (None where the profiler linked the kernel
+    to no operator, or outside any range)."""
+    kind = kind_of(kernel)
+    if kind == "K3/K4":  # the template's second argument: true for K4 (with values), false for K3
+        return "K4" if "true" in kernel.split("sort_round_seg_kernel<", 1)[-1].split(">", 1)[0] else "K3"
+    if kind in ("S1", "K9"):
+        return kind
+    if moe_range == "moe.experts" and kind == "matrix products":
+        return "MoE expert einsums"
+    if moe_range in ("moe.dispatch", "moe.combine"):
+        return "MoE dispatch and combine (gathers, scatters)"
+    if moe_range in ("moe.route", "moe.positions", "moe.sort"):
+        return "MoE routing (router, top-k, positions)"
+    if op == "aten::bmm":
+        return "attention einsums (aten::bmm)"
+    return "other matrix products" if kind == "matrix products" else kind
+
+
 def profile_prefill(prefill, params: dict, tokens: torch.Tensor, cache_len: int) -> dict:
     """Trace one ``make_prefill_step`` call: the report of :func:`_trace`
-    with the device ms by kind (``KINDS``), the matrix products split into
-    attention's einsums (the kernels ``aten::bmm`` launches itself) and
-    the rest."""
+    with the device ms by kind (:data:`PREFILL_KINDS`): S1, K3, K4 and K9,
+    a MoE layer's expert products, its dispatch and combine and its
+    routing (by the ranges ``models/moe.py`` opens while the profiler
+    records), attention's einsums (the kernels ``aten::bmm`` launches
+    itself), the other products and the rest by name.  A kernel the
+    profiler linked to no operator (S1 and K4, which ``ctypes`` launches)
+    is classed by its name alone."""
     r = _trace(lambda: prefill(params, {"tokens": tokens}, cache_len), 1)
-    kinds = by_kind(r["by_name"])
-    bmm = r["by_op"].get("aten::bmm", 0.0)
-    r["kinds"] = {"attention einsums (aten::bmm)": bmm, "other matrix products": kinds.pop("matrix products") - bmm,
-                  **kinds}
+    kinds = dict.fromkeys(PREFILL_KINDS, 0.0)
+    unlinked = dict(r["by_name"])
+    for kernel, op, moe_range, ms in r["linked"]:
+        kinds[prefill_kind(kernel, op, moe_range)] += ms
+        unlinked[kernel] = unlinked.get(kernel, 0.0) - ms
+    for kernel, ms in unlinked.items():
+        kinds[prefill_kind(kernel, None, None)] += ms
+    r["kinds"] = kinds
     return r
 
 
@@ -183,7 +243,8 @@ def report_prefill(name: str, r: dict) -> None:
     if r["busy_ms"] is None:
         print("    by kind: not measured")
         return
-    print("    by kind: " + ", ".join(f"{k} {ms:.3f} ms ({ms / r['busy_ms']:.3f})" for k, ms in r["kinds"].items()))
+    print("    by kind: " + ", ".join(f"{k} {ms:.3f} ms ({ms / r['busy_ms']:.3f})" for k, ms in r["kinds"].items()
+                                       if ms))
 
 
 def main_train() -> None:
@@ -236,6 +297,14 @@ def main() -> None:
     tokens = torch.randint(1, cfg.vocab_size, (1, HYBRID_PROMPT), generator=gen, device="cuda")
     print(f"{cfg.name} full width, fused scan, prompt (1, {HYBRID_PROMPT})")
     report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, tokens, HYBRID_PROMPT + 16))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), moe_dispatch="merge_path_pallas")
+    params = _cast(init_params(cfg, seed=0, device="cuda"), _dtype(cfg))
+    tokens = torch.randint(1, cfg.vocab_size, (1, MOE_PROMPT), generator=gen, device="cuda")
+    print(f"{cfg.name} full width, {cfg.num_layers} layers, merge_path_pallas dispatch, prompt (1, {MOE_PROMPT})")
+    report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, tokens, MOE_PROMPT + 16))
     del params
     torch.cuda.empty_cache()
     main_train()

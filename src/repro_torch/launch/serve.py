@@ -4,14 +4,17 @@
         --requests 6 --batch 2 --max-new 8 [--device cpu]
 
 Like the reference's ``repro.launch.serve`` it serves the reduced config
-of ``--arch`` (tinyllama-1.1b, yi-6b, gemma3-12b, hymba-1.5b or
-falcon-mamba-7b, or their aliases) with random weights from a seed;
+of ``--arch`` (tinyllama-1.1b, yi-6b, gemma3-12b, hymba-1.5b,
+falcon-mamba-7b, moonshot-v1-16b-a3b or phi3.5-moe-42b-a6.6b, or their
+aliases) with random weights from a seed, MoE routing on the kernel sort
+(``moe_dispatch="merge_path_pallas"``: S1 and K4);
 ``--device`` picks the device (the card by default).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -32,7 +35,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch).reduced()
+    cfg = dataclasses.replace(get_config(args.arch).reduced(), moe_dispatch="merge_path_pallas")
     params = init_params(cfg, seed=0, device=args.device)
     engine = ServingEngine(cfg, params, batch=args.batch, max_seq=args.max_seq, device=args.device)
 

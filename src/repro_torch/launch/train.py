@@ -7,8 +7,10 @@ The reference's ``repro.launch.train`` loop: data pipeline -> train step
 -> checkpoint cadence -> restart on failure (the supervisor) -> straggler
 report.  It trains the reduced config of ``--arch`` by default
 (``--no-reduced`` for the published widths: tinyllama-1.1b, yi-6b,
-gemma3-12b, hymba-1.5b or falcon-mamba-7b), with Mamba heads on the
-fused selective scan (K9 forward, K10 backward), on the card unless
+gemma3-12b, hymba-1.5b, falcon-mamba-7b, moonshot-v1-16b-a3b or
+phi3.5-moe-42b-a6.6b), with Mamba heads on the fused selective scan (K9
+forward, K10 backward) and MoE routing on the kernel sort
+(``moe_dispatch="merge_path_pallas"``: S1 and K4), on the card unless
 ``--device cpu``.  Gradient compression (``--grad-compression``) comes
 with the parallel slice.
 Checkpoints go to ``build/train_ckpt`` under the checkout unless
@@ -55,7 +57,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, ssm_backend="fused")
+    cfg = dataclasses.replace(cfg, ssm_backend="fused", moe_dispatch="merge_path_pallas")
     tcfg = TrainConfig(
         learning_rate=args.lr,
         warmup_steps=10,

@@ -1,7 +1,7 @@
 """Top-level model API: embed -> layers -> logits, for training, prefill and decode.
 
 The PyTorch counterpart of the reference's ``repro/models/model.py`` for
-the dense, SSM and hybrid families.  ``forward_decode`` walks the layers in a
+the dense, SSM, hybrid and MoE families.  ``forward_decode`` walks the layers in a
 Python loop (the reference scans them); caches keep the reference's
 layout, ``{"sub<i>": {...}}`` with a leading ``num_groups`` axis — ``k``
 and ``v`` ``(num_groups, B, cache_len, K, hd)`` for attention, ``conv``
@@ -24,6 +24,7 @@ from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 
 from . import attention as attn_mod
 from . import ssm as ssm_mod
+from . import moe as moe_mod
 from .layers import mlp_apply, rms_norm
 from .transformer import _dtype, _group_windows, check_family, init_params, layer_params, stack_forward
 
@@ -119,7 +120,8 @@ def _layer_decode(cfg: ModelConfig, p: Dict, x, cache: Dict, pos, window: int):
         mix = y if mix is None else mix + y
     x = x + mix
     if "ffn_norm" in p:
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
+        hf = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
+        x = x + (moe_mod.moe_apply(p["moe"], hf, cfg) if "moe" in p else mlp_apply(p["mlp"], hf, cfg.act))
     return x
 
 

@@ -1,7 +1,7 @@
 """Decoder stacks: parameter init, the per-layer layout, the prefill and training stack.
 
 The PyTorch counterpart of the reference's ``repro/models/transformer.py``
-for the dense, SSM and hybrid families.  Parameters keep the reference's
+for the dense, SSM, hybrid and MoE families.  Parameters keep the reference's
 layout so that weights convert one to one (:mod:`repro_torch.convert`):
 every layer parameter is stacked on a leading ``num_layers`` axis, and
 layers are grouped in homogeneous groups of ``cfg.layer_group`` (gemma3 6:
@@ -9,8 +9,9 @@ layers are grouped in homogeneous groups of ``cfg.layer_group`` (gemma3 6:
 The stack (:func:`stack_forward`) runs the layers with the decode caches
 for prefill, or without them for training (each layer group
 rematerialised in the backward per ``cfg.remat`` and
-``cfg.remat_policy``).  The MoE, VLM-prefix and encoder-decoder families
-come with later slices.
+``cfg.remat_policy``).  A MoE layer's feed-forward is
+:func:`~repro_torch.models.moe.moe_apply`.  The VLM-prefix and
+encoder-decoder families come with later slices.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import dense_init, mlp_apply, mlp_init, rms_norm
 
@@ -38,7 +40,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this slice of the port does not run yet."""
-    if cfg.family not in (DENSE, SSM, HYBRID) or cfg.num_experts or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
+    if cfg.family not in (DENSE, SSM, HYBRID, MOE) or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in a later slice, see ROADMAP.md"
         )
@@ -64,7 +66,10 @@ def _layers_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
         p["attn"] = _attn_init(gen, cfg, dtype, lead)
     if cfg.family in (SSM, HYBRID):
         p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, lead)
-    if cfg.d_ff:
+    if cfg.num_experts:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+        p["ffn_norm"] = torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)
+    elif cfg.d_ff:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, lead)
         p["ffn_norm"] = torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)
     return p
@@ -171,7 +176,8 @@ def _layer_fwd(
         mix = y if mix is None else mix + y
     x = x + mix
     if "ffn_norm" in p:
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ffn_norm"], cfg.rms_eps), cfg.act)
+        hf = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
+        x = x + (moe_mod.moe_apply(p["moe"], hf, cfg) if "moe" in p else mlp_apply(p["mlp"], hf, cfg.act))
     return x, cache
 
 

@@ -1,19 +1,25 @@
 """Kernel-path training smoke: ``python -m repro_torch.train.smoke [--device cpu]``.
 
-The falcon-mamba half of the reference's ``repro/train/smoke.py``: one real
+The reference's ``repro/train/smoke.py``: one real
 :func:`~repro_torch.train.steps.make_train_step` step (loss, backward, AdamW
-update) of the reduced falcon-mamba config with ``ssm_backend="fused"``, so
-that the forward runs K9 and the backward K10 (their plain versions on the
-CPU).  The sequence (36) straddles the checkpoint interval, so the short
-last tile is part of the trained graph.  It asserts that
+update) of each of two reduced configs, on the kernels (their plain
+versions on the CPU):
+
+* falcon-mamba with ``ssm_backend="fused"``, so that the forward runs K9
+  and the backward K10.  The sequence (36) straddles the checkpoint
+  interval, so the short last tile is part of the trained graph;
+* phi3.5-moe with ``moe_dispatch="merge_path_pallas"``, so that the
+  routing sort runs on the tile sort S1.  Its 256 tokens of 2 experts are
+  512 slots a row: with the port's tile of 512 (``kernels/tune.py``) that
+  is one S1 launch per layer and no K4 round (the reference's comment
+  about "the flat merge round" is about its own 256-key int tile).
+
+For each it asserts that
 
 1. the step's loss is finite;
 2. the gradient of the same loss is finite and nonzero on every parameter
    leaf (a dead leaf means a route silently detached);
 3. the update moved the parameters.
-
-The reference's second half, phi3.5-moe on the merge-path dispatch, comes
-with the MoE slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -87,6 +93,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     # checkpoint interval, so the short last tile is part of the trained graph
     ssm = dataclasses.replace(get_config("falcon-mamba").reduced(), ssm_backend="fused")
     ok = smoke_one("falcon-mamba/fused-ssm-scan", ssm, batch=2, seq=36, device=args.device)
+    # MoE on the kernel dispatch (phi3.5-moe-shaped): 256 tokens x top-2 = 512 slots, one S1 chunk
+    moe = dataclasses.replace(get_config("phi35-moe").reduced(), moe_dispatch="merge_path_pallas")
+    ok &= smoke_one("phi3.5-moe/merge-path-pallas", moe, batch=1, seq=256, device=args.device)
     if not ok:
         print("[train-smoke] FAILED", file=sys.stderr)
         return 1

@@ -26,10 +26,11 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
 print(len(names), ",".join(names), bad)
 """
 
-# the modules of the training slice: each must be walked (and so imported) above
+# the modules of the training and MoE slices: each must be walked (and so imported) above
 TRAIN_MODULES = {
     "repro_torch.optim.adamw", "repro_torch.train.steps", "repro_torch.train.smoke", "repro_torch.data.pipeline",
     "repro_torch.checkpoint.manager", "repro_torch.runtime.fault_tolerance", "repro_torch.launch.train",
+    "repro_torch.models.moe", "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.phi35_moe_42b_a6_6b",
 }
 
 
@@ -43,7 +44,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 47  # every module was walked
+    assert int(count) >= 50  # every module was walked
     assert TRAIN_MODULES <= set(names.split(","))
     assert bad == "[]"
 

@@ -173,16 +173,17 @@ def test_engine_prefill_moves_the_other_slots_like_reference(weights):
 
 
 def test_attention_prefill_and_other_families_wait():
-    """Attention prefill is ported: the dense and hybrid families prefill.
-    The MoE, VLM-prefix and audio families still raise."""
-    cfg = get_config("tinyllama").reduced()
-    logits, caches, _ = forward_prefill(cfg, init_params(cfg, seed=0, device="cpu"),
-                                        {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-    assert logits.shape == (1, cfg.vocab_size) and caches["sub0"]["k"].shape[2] == 4
+    """Attention prefill is ported: the dense, hybrid and MoE families
+    prefill.  The VLM-prefix and audio families still raise."""
+    for arch in ("tinyllama", "moonshot"):
+        cfg = get_config(arch).reduced()
+        logits, caches, _ = forward_prefill(cfg, init_params(cfg, seed=0, device="cpu"),
+                                            {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+        assert logits.shape == (1, cfg.vocab_size) and caches["sub0"]["k"].shape[2] == 4
     base = get_config("falcon-mamba").reduced()
     check_family(dataclasses.replace(base, family="hybrid"))
-    for later in (dict(family="moe", num_experts=4, experts_per_token=2), dict(family="vlm", num_prefix_tokens=8),
-                  dict(family="audio", encoder_layers=2, encoder_seq=24)):
+    check_family(dataclasses.replace(base, family="moe", num_experts=4, experts_per_token=2))
+    for later in (dict(family="vlm", num_prefix_tokens=8), dict(family="audio", encoder_layers=2, encoder_seq=24)):
         with pytest.raises(NotImplementedError, match="later slice"):
             check_family(dataclasses.replace(base, **later))
         with pytest.raises(NotImplementedError, match="later slice"):

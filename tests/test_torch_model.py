@@ -111,9 +111,13 @@ def test_entry_points_refuse_a_silent_cpu(monkeypatch, weights):
 
 
 def test_other_families_wait_for_a_later_slice():
+    """The MoE family builds (its experts in place of the MLP); the VLM and
+    audio families wait for a later slice."""
     base = get_config("tinyllama-1.1b").reduced()
-    for later in (dict(family="moe", num_experts=4), dict(family="vlm", num_prefix_tokens=8),
-                  dict(family="audio", encoder_layers=2, encoder_seq=24)):
+    moe_cfg = dataclasses.replace(base, family="moe", num_experts=4, experts_per_token=2)
+    assert set(init_params(moe_cfg, device="cpu")["layers"]) == {"attn_norm", "attn", "moe", "ffn_norm"}
+    assert set(init_caches(moe_cfg, 1, 8, device="cpu")["sub0"]) == {"k", "v"}
+    for later in (dict(family="vlm", num_prefix_tokens=8), dict(family="audio", encoder_layers=2, encoder_seq=24)):
         cfg = dataclasses.replace(base, **later)
         with pytest.raises(NotImplementedError, match="later slice"):
             init_params(cfg, device="cpu")
