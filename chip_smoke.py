@@ -102,7 +102,17 @@ Phases (any failure raises, and the script exits non-zero):
     kernel route and the core route bit-identical; phi3.5-moe-42b-a6.6b at
     full width cut to 8 of 32 layers prefilled and sampled; the reduced
     moonshot and phi3.5-moe on the card against the CPU;
-11. the ``kernels`` line, the card line and the result line.
+11. distributed (:func:`phase_distributed`): the distributed merges,
+    the sample sort and the top-k of ``repro_torch.core.distributed`` at
+    world size 1 over NCCL in this process (2 x 2^24 merges under both
+    exchanges against ``ops.merge``; 2^24 int32 and float32 sorts with the
+    local sort on S1 and K3 or K4, launch counts read; (8, 262144) top-k
+    against the kernel sampler); four gloo ranks on CPU tensors holding
+    every public function against single-process ``repro_torch.core``; the
+    sample sort's per-rank stages at P = 8 on the card, 2^21 keys a rank,
+    with the exchange emulated on the device (S1, K3/K4 and K7 against
+    their plain versions on rank 0's own work);
+12. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -2925,6 +2935,484 @@ def phase_moe(device: str = "cuda", reduce: bool = False, card: str = "cpu", pro
             "train_ms": train_ms, "phi_prefill_s": phi_prefill_s}
 
 
+DIST_LOG2N = 24  # part (a): 2 x 2^24 merges, 2^24 sorts
+DIST_TOPK = (8, 262144)  # part (a): gemma3-12b's vocab
+DIST_GLOO_RANKS, DIST_GLOO_LOG2N = 4, 16  # part (b)
+DIST_STAGE_RANKS, DIST_STAGE_LOG2N = 8, 24  # part (c): 2^21 keys a rank
+DIST_K = 40
+
+
+def free_port() -> int:
+    """A free local TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_of(x, p: int, i: int):
+    """Rank ``i``'s ceil-div shard of ``x`` along its last axis."""
+    n = x.shape[-1]
+    m = -(-n // p)
+    return x[..., min(i * m, n):min((i + 1) * m, n)].contiguous()
+
+
+def call_ms(fn, iters: int = 3) -> float:
+    """Host milliseconds per call, each call ended by a synchronize (for
+    calls that read the host between launches, as the distributed ones do)."""
+    import torch
+
+    fn()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def dist_case_ranks(rank: int, world: int, port: int, case_path: str, out_dir: str) -> None:
+    """One gloo rank of :func:`start_dist_cases`: every case on this rank's
+    shards, its output (or the ``ValueError`` it raised) saved to
+    ``out_dir/<case>.<rank>.pt``.
+
+    A case is a dict: ``name``; ``fn``, a function of
+    ``repro_torch.core.distributed``, or ``"sample"`` (the sampler's
+    ``"distributed"`` route beside its ``"kernel"`` route on the whole
+    logits, both generators seeded with ``kwargs["seed"]``) or ``"dsort"``
+    (``repro_torch.launch.dsort.main(kwargs["argv"])``); ``p``, the ranks
+    it runs on (ranks ``0 ... p - 1``, a group of their own when ``p <
+    world``); ``args``, the global inputs, and ``shard``, which of them
+    each rank takes its ceil-div shard of; ``kwargs``.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.serving import topk_sample
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    try:
+        cases = torch.load(case_path, weights_only=True)
+        groups = {p: None if p == world else dist.new_group(list(range(p))) for p in sorted({c["p"] for c in cases})}
+        for case in cases:
+            p, group, kw = case["p"], groups[case["p"]], case["kwargs"]
+            if rank >= p:
+                continue
+            args = [shard_of(a, p, rank) if s else a for a, s in zip(case["args"], case["shard"])]
+            try:
+                if case["fn"] == "sample":
+                    gens = [torch.Generator().manual_seed(kw["seed"]) for _ in range(2)]
+                    out = (topk_sample(args[0], gens[0], k=kw["k"], backend="distributed", group=group),
+                           topk_sample(case["args"][0], gens[1], k=kw["k"], backend="kernel"))
+                elif case["fn"] == "dsort":
+                    from repro_torch.launch import dsort
+
+                    out = dsort.main(kw["argv"])
+                else:
+                    out = getattr(D, case["fn"])(*args, group=group, **kw)
+                res = {"out": out}
+            except ValueError as e:
+                res = {"error": f"ValueError: {e}"}
+            torch.save(res, f"{out_dir}/{case['name']}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dist_cases(cases: list, world: int, tmp: str):
+    """Spawn ``world`` gloo ranks on CPU tensors that run ``cases``
+    (:func:`dist_case_ranks`) and return at once: ``(context, out_dir)``."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    case_path, out_dir = os.path.join(tmp, "cases.pt"), os.path.join(tmp, "out")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(cases, case_path)
+    ctx = mp.start_processes(dist_case_ranks, args=(world, free_port(), case_path, out_dir), nprocs=world,
+                             join=False, start_method="spawn")
+    return ctx, out_dir
+
+
+def dist_case_results(ctx, out_dir: str, cases: list, timeout: float = 600) -> dict:
+    """Wait for the ranks of :func:`start_dist_cases` (a rank's exception is
+    raised here) and return every case's per-rank results."""
+    import torch
+
+    t0 = time.perf_counter()
+    while not ctx.join(timeout=5):
+        check(time.perf_counter() - t0 < timeout, f"the gloo ranks ran past {timeout} s")
+    return {c["name"]: [torch.load(f"{out_dir}/{c['name']}.{r}.pt", weights_only=True) for r in range(c["p"])]
+            for c in cases}
+
+
+def gloo_parity_cases(log2n: int, gen) -> list:
+    """Part (b)'s cases: every public function of ``core.distributed`` with
+    every exchange and combine, on CPU tensors, each with its single-process
+    ``repro_torch.core`` answer (``want``) and how a rank's output reads
+    against it (``kind``)."""
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core.merge_path import max_sentinel
+
+    n = 1 << log2n
+    p = DIST_GLOO_RANKS
+
+    def srt(x):
+        return torch.sort(x, dim=-1).values.contiguous()
+
+    a, b = srt(torch.randn(n, generator=gen)), srt(torch.randn(n - 3, generator=gen))
+    av, bv = torch.arange(n, dtype=torch.int32), torch.arange(n, 2 * n - 3, dtype=torch.int32)
+    ra, rb = srt(torch.randint(-9, 9, (3, n // 8 + 5), generator=gen).to(torch.int16)), srt(
+        torch.randint(-9, 9, (3, n // 8 - 2), generator=gen).to(torch.int16))
+    ka, kb = srt(torch.randint(0, 50, (3, n // 8), generator=gen, dtype=torch.int32)), srt(
+        torch.randint(0, 50, (3, n // 8 + 1), generator=gen, dtype=torch.int32))
+    ka[:, -n // 64:], kb[:, -n // 32:] = max_sentinel(torch.int32), max_sentinel(torch.int32)
+    kav = torch.arange(ka.numel(), dtype=torch.int32).view(ka.shape)
+    kbv = -torch.arange(kb.numel(), dtype=torch.int32).view(kb.shape) - 1
+    xi = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, dtype=torch.int64).to(torch.int32)
+    xf = torch.randn(n, generator=gen) * 100
+    logits = torch.randn(4, n, generator=gen) * 3
+    cases = []
+
+    def add(name, fn, args, shard, want, kind, **kwargs):
+        cases.append({"name": name, "fn": fn, "p": p, "args": list(args), "shard": list(shard), "kwargs": kwargs,
+                      "want": want, "kind": kind})
+
+    for ex in ("window", "gather"):
+        add(f"merge_{ex}", "distributed_merge", (a, b), (1, 1), core.merge(a, b), "segments", exchange=ex)
+        add(f"merge_kv_{ex}", "distributed_merge_kv", (a, av, b, bv), (1, 1, 1, 1), core.merge_kv(a, av, b, bv),
+            "segments", exchange=ex)
+        add(f"merge_batched_int16_{ex}", "distributed_merge_batched", (ra, rb), (1, 1), core.merge_batched(ra, rb),
+            "segments", exchange=ex)
+        add(f"merge_kv_batched_{ex}", "distributed_merge_kv_batched", (ka, kav, kb, kbv), (1, 1, 1, 1),
+            core.merge_kv_batched(ka, kav, kb, kbv), "segments", exchange=ex)
+    add("merge_local", "distributed_merge_local", (a[:n - 4], b[:n - 4]), (1, 1), core.merge(a[:n - 4], b[:n - 4]),
+        "segments")
+    for x, dt in ((xi, "int32"), (xf, "float32")):
+        for local_sort in ("core", "kernel"):
+            for combine in ("onepass", "tournament"):
+                add(f"sort_{dt}_{local_sort}_{combine}", "distributed_sort", (x,), (1,), core.merge_sort(x), "sort",
+                    local_sort=local_sort, combine=combine)
+        add(f"sort_local_{dt}", "distributed_sort_local", (x,), (1,), core.merge_sort(x), "sort")
+    for ex in ("butterfly", "gather", "auto"):
+        v, i = core.topk_batched(xf[None, :], DIST_K)
+        add(f"topk_{ex}", "distributed_topk", (xf, DIST_K), (1, 0), (v[0], i[0]), "replicated", exchange=ex)
+        add(f"topk_batched_{ex}", "distributed_topk_batched", (logits, DIST_K), (1, 0),
+            core.topk_batched(logits, DIST_K), "replicated", exchange=ex)
+    add("topk_local", "distributed_topk_local", (xf,), (1,), (v[0], i[0]), "replicated", k=DIST_K)
+    return cases
+
+
+def check_gloo_case(case: dict, outs: list) -> None:
+    """Hold one part (b) case's per-rank outputs against its core answer, bit for bit."""
+    import torch
+
+    name, want, kind = case["name"], case["want"], case["kind"]
+    for r, res in enumerate(outs):
+        check("error" not in res, f"gloo {name} rank {r}: {res.get('error')}")
+    got = [res["out"] for res in outs]
+    if kind == "segments":
+        if isinstance(want, tuple):
+            for j, part in enumerate(("keys", "values")):
+                bit_err(torch.cat([g[j] for g in got], -1), want[j], f"gloo {name} {part}")
+        else:
+            bit_err(torch.cat(got, -1), want, f"gloo {name}")
+    elif kind == "sort":
+        check(not any(bool(g[2]) for g in got), f"gloo {name}: overflow")
+        bit_err(torch.cat([g[0][: int(g[1][0])] for g in got]), want, f"gloo {name} valid prefixes")
+    else:
+        for r, g in enumerate(got):
+            for j, part in enumerate(("values", "indices")):
+                bit_err(g[j], want[j], f"gloo {name} rank {r} {part}")
+
+
+def phase_distributed(device: str = "cuda", card: str = "cpu", log2n: int = DIST_LOG2N, topk_shape=DIST_TOPK,
+                      gloo_log2n: int = DIST_GLOO_LOG2N, stage_ranks: int = DIST_STAGE_RANKS,
+                      stage_log2n: int = DIST_STAGE_LOG2N, seed: int = 13) -> dict:
+    """Distributed Merge Path (``repro_torch.core.distributed``) in three parts.
+
+    (a) One rank in this process (NCCL on the card, gloo on the CPU, world
+        size 1): ``distributed_merge`` of 2 x 2^log2n float32 keys under
+        ``"window"`` and ``"gather"``, bit-identical to each other and to
+        ``ops.merge``; ``distributed_merge_kv`` with int32 values against
+        ``ops.merge_kv``; ``distributed_sort`` of 2^log2n int32 and float32
+        keys with ``local_sort="kernel"`` and both combines, the valid
+        prefix bit-identical to ``ops.sort`` and a stable ``torch.sort``,
+        with S1 and K3 (int32) or K4 (float32) launches read exactly (at
+        P = 1 the tournament's one run launches no K7);
+        ``distributed_topk_batched`` of ``topk_shape`` logits under
+        ``"auto"`` (``"gather"`` at P = 1) bit-identical to the
+        ``"kernel"`` sampler's candidates, and the same token from the same
+        seed; the host ms of each call.
+    (b) Gloo at P = 4 on CPU tensors (four spawned ranks, 2^gloo_log2n
+        keys): every public function with every exchange and combine
+        bit-identical to single-process ``repro_torch.core``.  CPU tensors
+        launch no kernel.
+    (c) The sample sort's per-rank stages at P = ``stage_ranks`` on this
+        device, 2^stage_log2n keys in all, int32 and float32: each rank's
+        ``sort_prepare`` (S1 and K3 or K4), the splitter gather and the
+        bucket exchange emulated by stacking and transposing on this
+        device ("emulated exchange (one card)": not a collective), each
+        rank's ``sort_combine`` under ``"tournament"`` (K7 on the card) and
+        ``"onepass"``; the valid prefixes in rank order bit-identical to a
+        stable ``torch.sort`` of the whole, K7 against its plain version on
+        rank 0's received runs, S1 and K3/K4 on rank 0's shard; the ms of
+        each stage per rank beside a stable ``torch.sort`` of one shard.
+    On the CPU (the tests) the plain versions stand in for the kernels and
+    nothing is timed.  Returns the ``"distributed"`` objects of S1, K3, K4
+    and K7 for the ``kernels`` line.
+    """
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import core
+    from repro_torch.core import distributed as D
+    from repro_torch.core.merge_path import max_sentinel, total_order_keys
+    from repro_torch.kernels import WRAPPERS, ops, reset_launches
+    from repro_torch.kernels import merge_path as km
+    from repro_torch.kernels.ops import _sort_tile
+    from repro_torch.serving import sampler
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def want(**kw):
+        out = dict.fromkeys((fn.__name__ for fn in WRAPPERS), 0)
+        if on_card:
+            out.update(kw)
+        return out
+
+    def timed(fn, iters=3):
+        return call_ms(fn, iters) if on_card else None
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    # (a) one rank in this process
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        n = 1 << log2n
+        a, b = (torch.sort(torch.randn(n, generator=gen, device=device)).values for _ in range(2))
+        av = torch.arange(n, dtype=torch.int32, device=device)
+        bv = torch.arange(n, 2 * n, dtype=torch.int32, device=device)
+        window = D.distributed_merge(a, b)
+        gather = D.distributed_merge(a, b, exchange="gather")
+        bit_err(window, gather, "distributed_merge window against gather")
+        bit_err(window, ops.merge(a, b), "distributed_merge against ops.merge")
+        for ex in ("window", "gather"):
+            for got, ref, part in zip(D.distributed_merge_kv(a, av, b, bv, exchange=ex), ops.merge_kv(a, av, b, bv),
+                                      ("keys", "values")):
+                bit_err(got, ref, f"distributed_merge_kv {ex} {part} against ops.merge_kv")
+        ms = {"distributed_merge window": timed(lambda: D.distributed_merge(a, b)),
+              "distributed_merge gather": timed(lambda: D.distributed_merge(a, b, exchange="gather")),
+              "ops.merge": timed(lambda: ops.merge(a, b)),
+              "distributed_merge_kv window": timed(lambda: D.distributed_merge_kv(a, av, b, bv)),
+              "ops.merge_kv": timed(lambda: ops.merge_kv(a, av, b, bv))}
+        del window, gather
+        tile = _sort_tile(n, None, None)[0]
+        sort_launches = {}
+        for dtype in (torch.int32, torch.float32):
+            if dtype == torch.int32:
+                x = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=device, dtype=torch.int64).to(dtype)
+                tiles, rounds = "sort_tiles", "sort_round"
+            else:
+                x = torch.randn(n, generator=gen, device=device) * 100
+                tiles, rounds = "sort_tiles_kv", "sort_round_kv"
+            ref = torch.sort(x, stable=True).values
+            bit_err(ops.sort(x), ref, f"ops.sort {dtype} against torch.sort")
+            for combine in ("onepass", "tournament"):
+                reset_launches()
+                out, count, overflow = D.distributed_sort(x, local_sort="kernel", combine=combine)
+                got = counts()
+                expect = want(**{tiles: 1, rounds: wide_rounds(n, tile)})
+                check(got == expect, f"distributed_sort {dtype} {combine} launched {got}, want {expect}")
+                sort_launches[tiles], sort_launches[rounds] = got[tiles], got[rounds]
+                check(int(count[0]) == n and not bool(overflow), f"distributed_sort {dtype}: count {int(count[0])}")
+                bit_err(out[:n], ref, f"distributed_sort {dtype} {combine} valid prefix against torch.sort")
+                check(bool((out[n:] == max_sentinel(dtype)).all()), f"distributed_sort {dtype}: tail not sentinel")
+                ms[f"distributed_sort {str(dtype)[6:]} {combine}"] = timed(
+                    lambda: D.distributed_sort(x, local_sort="kernel", combine=combine))
+            ms[f"ops.sort {str(dtype)[6:]}"] = timed(lambda: ops.sort(x))
+            ms[f"torch.sort {str(dtype)[6:]} (stable)"] = timed(lambda: torch.sort(x, stable=True))
+        del x, ref, out
+        logits = torch.randn(topk_shape, generator=gen, device=device) * 3
+        check(D._resolve_topk_exchange("auto", 1) == "gather", "auto at P = 1 is not the gather exchange")
+        reset_launches()
+        dv, di = D.distributed_topk_batched(logits, DIST_K)
+        check(counts() == want(), f"distributed_topk_batched launched {counts()}")
+        kv_, ki = sampler._topk_candidates(logits, DIST_K, None, "kernel", None, None)
+        bit_err(dv, kv_, "distributed_topk_batched values against the kernel sampler's")
+        bit_err(di, ki, "distributed_topk_batched indices against the kernel sampler's")
+        tokens = []
+        for backend in ("distributed", "kernel"):
+            g = torch.Generator(device=device)
+            g.manual_seed(seed)
+            tokens.append(sampler.topk_sample(logits, g, k=DIST_K, backend=backend))
+        bit_err(tokens[0], tokens[1], "the distributed sampler's tokens against the kernel sampler's")
+        ms[f"distributed_topk_batched {tuple(topk_shape)}"] = timed(lambda: D.distributed_topk_batched(logits, DIST_K))
+        ms[f"kernel sampler's top-k {tuple(topk_shape)}"] = timed(
+            lambda: sampler._topk_candidates(logits, DIST_K, None, "kernel", None, None))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    del logits
+    print(f"distributed: (a) one rank ({backend}, world size 1): 2 x 2^{log2n} merges window == gather == ops.merge "
+          f"(kv too), 2^{log2n} sorts with local_sort=\"kernel\" equal to ops.sort and a stable torch.sort, launches "
+          f"per call {sort_launches}, top-k {tuple(topk_shape)} equal to the kernel sampler's, tokens {tokens[0].tolist()}")
+    print("distributed: (a) host ms per call: " + ", ".join(f"{k} {fmt(v)}" for k, v in ms.items()) + f" ({card})")
+
+    # (b) gloo at P = 4 on CPU tensors
+    cpu_gen = torch.Generator().manual_seed(seed)
+    cases = gloo_parity_cases(gloo_log2n, cpu_gen)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx, out_dir = start_dist_cases([{k: v for k, v in c.items() if k not in ("want", "kind")} for c in cases],
+                                        DIST_GLOO_RANKS, tmp)
+        results = dist_case_results(ctx, out_dir, cases)
+    for case in cases:
+        check_gloo_case(case, results[case["name"]])
+    print(f"distributed: (b) gloo, {DIST_GLOO_RANKS} spawned ranks on CPU tensors (no kernel launched), 2^{gloo_log2n} "
+          f"keys: {len(cases)} calls of every public function, exchange and combine bit-identical to "
+          f"single-process repro_torch.core in {time.perf_counter() - t0:.1f} s")
+
+    # (c) the per-rank stages at P = stage_ranks on this device
+    p = stage_ranks
+    n = 1 << stage_log2n
+    m = n // p
+    cap = D.sort_capacity(m, 2.0)
+    tile = _sort_tile(m, None, None)[0]
+    chunk = min(m, tile)
+    widths = [tile << i for i in range(wide_rounds(m, tile))]
+    objs = {}
+    stage_ms = {}
+    for dtype in (torch.int32, torch.float32):
+        name = str(dtype)[6:]
+        if dtype == torch.int32:
+            x = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=device, dtype=torch.int64).to(dtype)
+            tiles, rounds = "sort_tiles", "sort_round"
+        else:
+            x = torch.randn(n, generator=gen, device=device) * 100
+            tiles, rounds = "sort_tiles_kv", "sort_round_kv"
+        shards = x.view(p, m)
+        prepared = []
+        for r in range(p):
+            reset_launches()
+            prepared.append(D.sort_prepare(shards[r], p, "kernel"))
+            prep_launches = counts()
+            expect = want(**{tiles: 1, rounds: len(widths)})
+            check(prep_launches == expect, f"rank {r} {name} sort_prepare launched {prep_launches}, want {expect}")
+        splitters = D.sort_splitters(torch.stack([s for _, s in prepared]), p)  # emulated all_gather
+        buckets = [D.sort_buckets(local, splitters, cap) for local, _ in prepared]
+        send_all = torch.stack([s for s, _ in buckets])  # (sender, receiver, cap)
+        counts_all = torch.stack([c for _, c in buckets])  # (sender, receiver)
+        check(not bool((counts_all > cap).any()), f"{name}: a bucket overflowed")
+        prefixes, k7 = [], []
+        recvs = [(send_all[:, j].contiguous(), counts_all[:, j].contiguous()) for j in range(p)]
+        for j, (recv, lens) in enumerate(recvs):
+            reset_launches()
+            out = D.sort_combine(recv, lens, "tournament", "kernel")
+            k7.append(counts()["merge_batched_ragged"])
+            check(counts() == want(merge_batched_ragged=(p - 1).bit_length()),
+                  f"rank {j} {name} tournament launched {counts()}")
+            bit_err(out, D.sort_combine(recv, lens, "onepass"), f"rank {j} {name} tournament against onepass")
+            prefixes.append(out[: int(lens.sum())])
+        bit_err(torch.cat(prefixes), torch.sort(x, stable=True).values,
+                f"{name}: the valid prefixes in rank order against a stable torch.sort")
+        del send_all, prefixes
+        # K7 against its plain version on rank 0's received runs, round by round
+        stacked, run_lens = recvs[0]
+        k7_err, k7_rounds = 0, []
+        while stacked.shape[0] > 1:
+            args = (stacked[0::2], stacked[1::2], run_lens[0::2].contiguous(), run_lens[1::2].contiguous())
+            got = km.merge_batched_ragged(*args, tile=tile)
+            k7_err = max(k7_err, bit_err(got, km.merge_batched_ragged_ref(*args), f"{name} K7 round of rank 0"))
+            valid = int(run_lens.sum())
+            cat = torch.cat([masked(args[0], args[2]), masked(args[1], args[3])], 1)
+            k7_rounds.append({"ms": time_ms(lambda: km.merge_batched_ragged(*args, tile=tile)) if on_card else None,
+                              "plain_ms": time_ms(lambda: km.merge_batched_ragged_ref(*args), iters=5) if on_card else None,
+                              "library_ms": time_ms(lambda: torch.sort(cat, dim=1, stable=True), iters=5) if on_card else None,
+                              "bound": rows_bound(valid, got.numel(), valid, 4)})
+            stacked, run_lens = got, run_lens[0::2] + run_lens[1::2]
+        # S1 and every K3/K4 round on rank 0's shard, against their plain versions
+        x0 = shards[0].contiguous()
+        keys0 = total_order_keys(x0)
+        idx0 = torch.arange(m, dtype=torch.int32, device=device)
+        if dtype == torch.int32:
+            s1, s1_ref = (lambda: km.sort_tiles(keys0, chunk)), (lambda: km.sort_tiles_ref(keys0, chunk))
+            s1_err = bit_err(s1(), s1_ref(), f"{name} S1 on rank 0's shard")
+        else:
+            s1, s1_ref = (lambda: km.sort_tiles_kv(keys0, idx0, chunk)), (lambda: km.sort_tiles_kv_ref(keys0, idx0, chunk))
+            s1_err = max(bit_err(g, w, f"{name} S1 kv on rank 0's shard") for g, w in zip(s1(), s1_ref()))
+        round_err, round_t = 0, []
+        for w in widths:
+            kf, vf = round_inputs(keys0, w, idx0, tile=tile)
+            if dtype == torch.int32:
+                kern, plain = (lambda: km.sort_round(kf, w, tile=tile)), (lambda: km.sort_round_ref(kf, w, tile=tile))
+                round_err = max(round_err, bit_err(kern(), plain(), f"{name} K3 width {w} on rank 0's shard"))
+            else:
+                kern, plain = (lambda: km.sort_round_kv(kf, vf, w, tile=tile)), (lambda: km.sort_round_kv_ref(kf, vf, w, tile=tile))
+                round_err = max(round_err, *(bit_err(g, q, f"{name} K4 width {w} on rank 0's shard")
+                                             for g, q in zip(kern(), plain())))
+            pairs = kf[:m].view(-1, 2 * w)
+            round_t.append({"ms": time_ms(kern) if on_card else None, "plain_ms": time_ms(plain) if on_card else None,
+                            "library_ms": time_ms(lambda: torch.sort(pairs, dim=1, stable=True)) if on_card else None,
+                            "bound": round_bound(m, 4, values=dtype != torch.int32)})
+
+        def total(parts, key):
+            return None if parts[0][key] is None else sum(q[key] for q in parts)
+
+        tb = tiles_bound(m, 4, values=dtype != torch.int32)
+        objs[tiles] = {"launches": sort_launches[tiles], "launches_per_rank_p8": prep_launches[tiles],
+                       "max_abs_err": s1_err, "ms": time_ms(s1) if on_card else None,
+                       "plain_ms": time_ms(s1_ref, iters=5) if on_card else None,
+                       "bound_ms": tb["ms"], "bound_by": tb["by"],
+                       "library_ms": time_ms(lambda: torch.sort(keys0.view(-1, chunk), dim=1, stable=True)) if on_card else None}
+        objs[rounds] = {"launches": sort_launches[rounds], "launches_per_rank_p8": prep_launches[rounds],
+                        "max_abs_err": round_err, "ms": total(round_t, "ms"), "plain_ms": total(round_t, "plain_ms"),
+                        "bound_ms": sum(q["bound"]["ms"] for q in round_t), "bound_by": round_t[0]["bound"]["by"],
+                        "library_ms": total(round_t, "library_ms")}
+        if dtype == torch.int32:  # K7 on the int32 keys' combine
+            objs["merge_batched_ragged"] = {
+                "launches": 0, "launches_per_rank_p8": k7[0], "max_abs_err": k7_err, "ms": total(k7_rounds, "ms"),
+                "plain_ms": total(k7_rounds, "plain_ms"), "bound_ms": sum(q["bound"]["ms"] for q in k7_rounds),
+                "bound_by": k7_rounds[0]["bound"]["by"], "library_ms": total(k7_rounds, "library_ms")}
+        if on_card:
+            stage_ms[name] = {
+                "prepare": [time_ms(lambda: D.sort_prepare(shards[r], p, "kernel"), iters=5) for r in range(p)],
+                "tournament": [time_ms(lambda: D.sort_combine(*recvs[j], "tournament", "kernel"), iters=5) for j in range(p)],
+                "onepass": [time_ms(lambda: D.sort_combine(*recvs[j], "onepass"), iters=5) for j in range(p)],
+                "torch.sort": time_ms(lambda: torch.sort(x0, stable=True), iters=5)}
+        del recvs, stacked, x, shards
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"distributed: (c) the sample sort's stages at P = {p} on {device}, 2^{stage_log2n} keys (2^{m.bit_length() - 1} "
+          f"a rank), emulated exchange (one card; stacking and transposing on the device, not a collective): the valid "
+          f"prefixes equal a stable torch.sort for int32 and float32; launches per rank: sort_prepare S1 1 and "
+          f"{len(widths)} K3 or K4, the tournament combine {(p - 1).bit_length()} K7, onepass none "
+          f"({'the plain versions on the CPU' if not on_card else 'read exactly'})")
+    for name, st in stage_ms.items():
+        print(f"distributed: (c) {name} ms per rank (CUDA events): prepare {[round(v, 5) for v in st['prepare']]}, "
+              f"tournament combine {[round(v, 5) for v in st['tournament']]}, onepass combine "
+              f"{[round(v, 5) for v in st['onepass']]}; a stable torch.sort of one rank's 2^{m.bit_length() - 1} "
+              f"{st['torch.sort']:.5f} ({card})")
+    for key, o in objs.items():
+        print(f"distributed: {key}: " + json.dumps(o))
+    return objs
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -3041,6 +3529,7 @@ def main() -> int:
     print(f"train: {k10_regs}")
     attention = phase_attention()
     moe = phase_moe(card=card)
+    distributed = phase_distributed(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -3069,9 +3558,11 @@ def main() -> int:
                         replaces="src/repro/kernels/ssm_scan.py:79", hymba=hymba["k9"]))
     kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
                         replaces="src/repro/kernels/ssm_scan.py:157", hymba=hymba["k10"]))
-    for k in kernels:  # S1 and K4 on moonshot's routing keys
+    for k in kernels:  # S1 and K4 on moonshot's routing keys; S1, K3, K4 and K7 on the distributed sort
         if k["name"] in ("sort_round_kv", "sort_tiles_kv"):
             k["moe"] = moe[k["name"]]
+        if k["name"] in distributed:
+            k["distributed"] = distributed[k["name"]]
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
           "sampled token, its launches those of the serving run (6 per sampled token); merge's and merge_kv's are "
           "one call at 2 x 2^24 (float32 keys; int32 keys and values), library_ms one stable torch.sort of the "
@@ -3103,7 +3594,14 @@ def main() -> int:
           "moonshot-v1-16b-a3b prefill (1, 4096): 24576 (expert id, slot) int32 pairs padded to 32768, S1 one call "
           "at chunk 512 (library_ms the chunks' stable torch.sort and the gather of the slots), K4 the sums over "
           "its 6 wide rounds (library_ms each round's stable torch.sort of its pair view and the gather), launches "
-          "those of that prefill (one S1 and 6 K4 per layer, 48 layers)")
+          "those of that prefill (one S1 and 6 K4 per layer, 48 layers); the \"distributed\" object of sort_tiles, "
+          "sort_tiles_kv, sort_round, sort_round_kv and merge_batched_ragged holds their numbers on phase 11's sample "
+          "sort: launches those of one distributed_sort of 2^24 int32 (sort_tiles, sort_round) or float32 "
+          "(sort_tiles_kv, sort_round_kv) keys at world size 1 (K7: none), launches_per_rank_p8 those of one rank's "
+          "sort_prepare of 2^21 keys (S1, K3 or K4) or tournament combine of its 8 received runs (K7) at the emulated "
+          "P = 8; the times on rank 0's stages there: S1 one call on its 2^21 keys at chunk 512 (float32: their "
+          "total-order keys and int32 indices), K3 and K4 sums over its 12 wide rounds, K7 the sum over the 3 "
+          "rounds of its int32 combine, library_ms as in the entries above")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,19 @@
 
 The PyTorch counterpart of the reference's ``repro/serving/sampler.py``.
 ``topk_sample`` and ``topp_sample`` take the per-row top-k candidates
-from one of two backends, which return bit-identical candidates:
+from one of three backends, which return bit-identical candidates:
 
 * ``"core"`` — the pure-PyTorch batched kv-sort (``repro_torch.core``);
 * ``"kernel"`` — the flat sort rounds of ``repro_torch.kernels.ops``, whose
   wide rounds launch the K4 kernel on a CUDA tensor (the counterpart of
-  the reference's ``backend="pallas"``).
+  the reference's ``backend="pallas"``);
+* ``"distributed"`` — the vocab sharded over a process group (``group=``,
+  ``None`` for the world): each rank passes its ``(B, V_i)`` slice of the
+  logits, in the ceil-div partition, and
+  :func:`repro_torch.core.distributed.distributed_topk_batched` gives every
+  rank the same global candidates.  The ranks draw the same token only
+  when every rank's ``generator`` is seeded alike.  ``vocab_lens`` is not
+  taken there: pad the sharded vocab with ``-inf`` logits instead.
 
 **Masked vocab** (``vocab_lens``): only a prefix of each logit row is
 real.  The candidates then come from the ragged top-k
@@ -30,9 +37,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import min_sentinel, topk_batched, topk_batched_ragged
+from repro_torch.core.distributed import distributed_topk_batched
 from repro_torch.kernels import ops as kops
 
-BACKENDS = ("core", "kernel")
+BACKENDS = ("core", "kernel", "distributed")
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -40,8 +48,15 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def _topk_candidates(
-    logits: torch.Tensor, k: int, vocab_lens, backend: str, tile: Optional[int], leaf: Optional[int]
+    logits: torch.Tensor, k: int, vocab_lens, backend: str, tile: Optional[int], leaf: Optional[int], group=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if backend == "distributed":
+        if vocab_lens is not None:
+            raise ValueError(
+                "vocab_lens is not supported with backend='distributed' — pad "
+                "the sharded vocab with -inf ban logits instead"
+            )
+        return distributed_topk_batched(logits, k, group=group)
     if backend == "kernel":
         if vocab_lens is None:
             return kops.topk_batched(logits, k, tile=tile, leaf=leaf)
@@ -67,12 +82,13 @@ def topk_sample(
     k: int = 40,
     temperature: float = 1.0,
     vocab_lens=None,  # optional (B,) or scalar: the valid vocab prefix of each row
-    backend: str = "core",
+    backend: str = "core",  # "core" | "kernel" | "distributed" (vocab-sharded)
     tile: Optional[int] = None,  # kernel tile override (None = tune.pick)
     leaf: Optional[int] = None,  # kernel leaf override (None = tune.pick)
+    group=None,  # backend="distributed": the process group that shards the vocab
 ) -> torch.Tensor:
     """One token per row from the softmax over its top-k candidates: ``(B,)`` int32."""
-    vals, idx = _topk_candidates(logits, k, vocab_lens, backend, tile, leaf)
+    vals, idx = _topk_candidates(logits, k, vocab_lens, backend, tile, leaf, group)
     probs = torch.softmax(vals.float() / max(temperature, 1e-6), dim=-1)
     return _draw(probs, idx, generator)
 
@@ -87,10 +103,11 @@ def topp_sample(
     backend: str = "core",
     tile: Optional[int] = None,
     leaf: Optional[int] = None,
+    group=None,
 ) -> torch.Tensor:
     """Nucleus sampling over the merge-path-sorted top-``k_max`` candidates:
     the smallest prefix whose probability reaches ``p`` (at least one)."""
-    vals, idx = _topk_candidates(logits, k_max, vocab_lens, backend, tile, leaf)
+    vals, idx = _topk_candidates(logits, k_max, vocab_lens, backend, tile, leaf, group)
     probs = torch.softmax(vals.float() / max(temperature, 1e-6), dim=-1)
     probs = torch.where(idx >= 0, probs, 0.0)
     keep = torch.cumsum(probs, dim=-1) - probs < p  # always keeps the first candidate

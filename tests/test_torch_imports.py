@@ -32,6 +32,8 @@ TRAIN_MODULES = {
     "repro_torch.checkpoint.manager", "repro_torch.runtime.fault_tolerance", "repro_torch.launch.train",
     "repro_torch.models.moe", "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.phi35_moe_42b_a6_6b",
 }
+# the distributed slice's modules
+DIST_MODULES = {"repro_torch.core.distributed", "repro_torch.launch.dsort"}
 
 
 def _forbidden(module: str) -> bool:
@@ -46,6 +48,7 @@ def test_importing_the_port_loads_no_jax():
     count, names, bad = out.stdout.strip().split(" ", 2)
     assert int(count) >= 50  # every module was walked
     assert TRAIN_MODULES <= set(names.split(","))
+    assert DIST_MODULES <= set(names.split(","))
     assert bad == "[]"
 
 
