@@ -112,7 +112,18 @@ Phases (any failure raises, and the script exits non-zero):
     sample sort's per-rank stages at P = 8 on the card, 2^21 keys a rank,
     with the exchange emulated on the device (S1, K3/K4 and K7 against
     their plain versions on rank 0's own work);
-12. the ``kernels`` line, the card line and the result line.
+12. runtime and telemetry (:func:`phase_runtime`): every guarded op of
+    ``repro_torch.kernels.ops`` and ``ssm_scan`` at phase 4/5/7 sizes with
+    verification forced on, bit-identical to the same call with the guard
+    off and with the same launch counts; each fault class
+    (``launch``, ``vmem``, ``exchange``, ``nan``) injected on six ops,
+    raising where the reference's first attempt fails; ROADMAP R10's
+    NaN-laced keys raising ``VerificationError``; the cost of verification
+    (CUDA events) and of the guard (host us per call); full-width
+    tinyllama-1.1b served under an injected decode fault, its trace
+    replayed byte-identically; the trace smoke and its ``--check``; its
+    numbers on a line of their own;
+13. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -2975,7 +2986,7 @@ def call_ms(fn, iters: int = 3) -> float:
 
 def dist_case_ranks(rank: int, world: int, port: int, case_path: str, out_dir: str) -> None:
     """One gloo rank of :func:`start_dist_cases`: every case on this rank's
-    shards, its output (or the ``ValueError`` it raised) saved to
+    shards, its output (or the error it raised) saved to
     ``out_dir/<case>.<rank>.pt``.
 
     A case is a dict: ``name``; ``fn``, a function of
@@ -2985,13 +2996,19 @@ def dist_case_ranks(rank: int, world: int, port: int, case_path: str, out_dir: s
     (``repro_torch.launch.dsort.main(kwargs["argv"])``); ``p``, the ranks
     it runs on (ranks ``0 ... p - 1``, a group of their own when ``p <
     world``); ``args``, the global inputs, and ``shard``, which of them
-    each rank takes its ceil-div shard of; ``kwargs``.
+    each rank takes its ceil-div shard of; ``kwargs``; and optionally
+    ``plan``, a fault plan (``repro_torch.runtime.faults``) the call runs
+    under.  A ``ValueError`` and the guard's errors
+    (``GuardedDispatchError``, ``VerificationError``) are saved as the
+    case's error.
     """
+    import contextlib
+
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import distributed as D
-    from repro_torch.serving import topk_sample
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.resilience import GuardedDispatchError, VerificationError
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
@@ -2999,27 +3016,37 @@ def dist_case_ranks(rank: int, world: int, port: int, case_path: str, out_dir: s
         cases = torch.load(case_path, weights_only=True)
         groups = {p: None if p == world else dist.new_group(list(range(p))) for p in sorted({c["p"] for c in cases})}
         for case in cases:
-            p, group, kw = case["p"], groups[case["p"]], case["kwargs"]
+            p, group = case["p"], groups[case["p"]]
             if rank >= p:
                 continue
             args = [shard_of(a, p, rank) if s else a for a, s in zip(case["args"], case["shard"])]
             try:
-                if case["fn"] == "sample":
-                    gens = [torch.Generator().manual_seed(kw["seed"]) for _ in range(2)]
-                    out = (topk_sample(args[0], gens[0], k=kw["k"], backend="distributed", group=group),
-                           topk_sample(case["args"][0], gens[1], k=kw["k"], backend="kernel"))
-                elif case["fn"] == "dsort":
-                    from repro_torch.launch import dsort
-
-                    out = dsort.main(kw["argv"])
-                else:
-                    out = getattr(D, case["fn"])(*args, group=group, **kw)
-                res = {"out": out}
-            except ValueError as e:
-                res = {"error": f"ValueError: {e}"}
+                with faults.inject(case["plan"]) if case.get("plan") else contextlib.nullcontext():
+                    res = {"out": _dist_case_call(case, args, group)}
+            except (ValueError, GuardedDispatchError, VerificationError) as e:
+                res = {"error": f"{type(e).__name__}: {e}"}
             torch.save(res, f"{out_dir}/{case['name']}.{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _dist_case_call(case: dict, args: list, group):
+    """One case of :func:`dist_case_ranks` on this rank's arguments."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.serving import topk_sample
+
+    kw = case["kwargs"]
+    if case["fn"] == "sample":
+        gens = [torch.Generator().manual_seed(kw["seed"]) for _ in range(2)]
+        return (topk_sample(args[0], gens[0], k=kw["k"], backend="distributed", group=group),
+                topk_sample(case["args"][0], gens[1], k=kw["k"], backend="kernel"))
+    if case["fn"] == "dsort":
+        from repro_torch.launch import dsort
+
+        return dsort.main(kw["argv"])
+    return getattr(D, case["fn"])(*args, group=group, **kw)
 
 
 def start_dist_cases(cases: list, world: int, tmp: str):
@@ -3413,6 +3440,375 @@ def phase_distributed(device: str = "cuda", card: str = "cpu", log2n: int = DIST
     return objs
 
 
+RUNTIME_OPS = ("merge", "sort", "sort_kv", "merge_batched_ragged", "merge_k", "topk_batched_ragged")
+# What each injected fault does to a call of phase 12, the outcome the CPU
+# tests (tests/test_torch_faults.py) hold to the reference's: the port raises
+# exactly where the reference's first attempt fails.  A sort of NaN-laced
+# keys is a correct total-order sort; merge_k laces nothing and has no
+# shared-memory check of its own (its rounds are guarded calls), as in the
+# reference.
+RUNTIME_EXPECT = {
+    "launch": dict.fromkeys(RUNTIME_OPS, "GuardedDispatchError"),
+    "vmem": dict(dict.fromkeys(RUNTIME_OPS, "GuardedDispatchError"), merge_k=None),
+    "exchange": dict.fromkeys(RUNTIME_OPS, "VerificationError"),
+    "nan": dict(dict.fromkeys(RUNTIME_OPS), merge="VerificationError", merge_batched_ragged="VerificationError"),
+}
+VERIFY_BYTES_PER_KEY = 4  # float32 and int32 keys: the verifier reads each output key once
+
+
+def in_turns(measure, settings: dict, pairs: int, base=None) -> dict:
+    """``measure()`` under each environment of ``settings`` (name ->
+    variables), ``pairs`` rounds with the order alternating: the median of
+    each name, and ``<name>_iqr`` the distance between its quartiles; the
+    first two names' ``difference`` (second minus first) last."""
+    import os
+    import statistics
+    from unittest import mock
+
+    got = {name: [] for name in settings}
+    names = list(settings)
+    for i in range(pairs):
+        for name in names if i % 2 == 0 else names[::-1]:
+            with mock.patch.dict(os.environ, dict(base or {}, **settings[name])):
+                got[name].append(measure())
+    out = {}
+    for name, values in got.items():
+        q = statistics.quantiles(values, n=4) if len(values) > 1 else [values[0]] * 3
+        out[name], out[f"{name}_iqr"] = statistics.median(values), q[2] - q[0]
+    out["difference"] = out[names[1]] - out[names[0]]
+    return out
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call, the calls queued back to back and one
+    synchronize at the end (the card is faster than the host here)."""
+    import torch
+
+    fn()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e6 / iters
+
+
+def _same(got, want, what: str) -> None:
+    for j, (g, w) in enumerate(zip(got, want) if isinstance(want, tuple) else [(got, want)]):
+        bit_err(g, w, f"{what} [{j}]")
+
+
+def phase_runtime(device: str = "cuda", card: str = "cpu", log2n: int = 24, rows=(64, 1 << 18), log2_run: int = 21,
+                  vocab: int = 32000, routing=(1, 24576, 64), scan=(1, 32768, 8192, 16), reduce: bool = False,
+                  smoke: bool = True, seed: int = 17) -> dict:
+    """The guarded dispatch, the fault injector and the trace export
+    (``repro_torch.runtime``, ``repro_torch.telemetry``) on the card.
+
+    (a) Clean calls with verification forced on (``REPRO_GUARD_VERIFY=1``):
+        every guarded op at phase 4/5 sizes (2 x 2^log2n merges, 2^log2n
+        sorts, ``rows`` x 2 batched and ragged merges, (64, 65536) rows,
+        ``ops.merge_k`` of 8 runs of 2^log2_run, the sampler's (1, vocab)
+        top-k, a moonshot routing sort of ``routing`` (rows, slots,
+        experts)) and ``ssm_scan`` at phase 7's layer-0 shape ``scan``: each
+        bit-identical to the same call under ``REPRO_GUARD=0``, the same
+        launch counts, and ``served_by {"kernel": 1}`` ("plain" on the CPU).
+    (b) Each fault class on each of ``RUNTIME_OPS`` (and ``launch`` on
+        ``ssm_scan_pallas``): the outcome of ``RUNTIME_EXPECT``, no launch
+        where the call raised before launching, a launch otherwise, and the
+        next call without a plan bit-identical to the clean one.
+    (c) ROADMAP R10's NaN-laced keys with verification on and no plan:
+        ``ops.merge`` and ``ops.merge_k`` raise ``VerificationError``, and so
+        does ``distributed_merge`` over a one-rank group (NCCL on the card);
+        ``distributed_sort`` there is one local total-order sort (no
+        splitters at P = 1), so its output of NaN-laced keys is sorted and
+        passes; with an ``exchange`` fault it raises, as the window
+        exchange of ``distributed_merge`` does.  On the card, the host ms
+        of ``distributed_merge`` and ``distributed_sort`` at 2^log2n with
+        the guard (which always verifies them) and with ``REPRO_GUARD=0``.
+    (d) The cost of verification: CUDA-event ms of ``ops.merge`` of 2 x
+        2^log2n and ``ops.sort`` of 2^log2n verified and not (3 pairs of
+        turns, medians and quartile spreads), and the verifier's own device
+        ms, beside its byte bound (each output key read once at the card's
+        memory rate).
+    (e) The cost of the guard: host us per call of the sampler's (1, vocab)
+        top-k and of the routing sort, guard on and ``REPRO_GUARD=0``,
+        verification off (10 pairs of turns, medians and quartile spreads),
+        and the guard's own host us around a call that does nothing.
+    (f) Serving with faults: tinyllama-1.1b at full width (the reduced
+        config with ``reduce``) serves 3 greedy requests under
+        ``launch:serving.decode:1,2``: all complete with 2 retries; the run
+        replayed in a fresh registry gives the same trace bytes, which pass
+        the port's ``--check``.
+    (g) ``python -m repro_torch.telemetry.smoke`` in a process of its own
+        (with ``smoke``), and ``python -m repro_torch.telemetry --check`` of
+        its trace.
+    On the CPU (the tests) the plain versions stand in for the kernels,
+    no launch is counted and nothing is timed.
+    """
+    import contextlib
+    import os
+    import tempfile
+    import warnings
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import WRAPPERS, ops, reset_launches
+    from repro_torch.kernels import ssm_scan as ks
+    from repro_torch.models import init_params
+    from repro_torch.runtime import faults
+    from repro_torch.runtime import resilience as res
+    from repro_torch.runtime.resilience import GuardedDispatchError, VerificationError
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.telemetry import Telemetry, trace_json_bytes, use
+    from repro_torch.telemetry import __main__ as trace_cli
+
+    def env_vars(**values):
+        return mock.patch.dict(os.environ, values)
+
+    on_card = device == "cuda"
+    label = "kernel" if on_card else "plain"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def srt(x):
+        return torch.sort(x, dim=-1).values.contiguous()
+
+    n = 1 << log2n
+    bsz, w = rows
+    a, b = srt(torch.randn(n, generator=gen, device=device)), srt(torch.randn(n, generator=gen, device=device))
+    iota = torch.arange(n, dtype=torch.int32, device=device)
+    xi = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    xf = torch.randn(n, generator=gen, device=device) * 100
+    ra, rb = (srt(torch.randn(bsz, w, generator=gen, device=device)) for _ in range(2))
+    ka, kb = (srt(torch.randint(-1000, 1000, (bsz, w), generator=gen, device=device, dtype=torch.int32)) for _ in range(2))
+    kva = torch.arange(bsz * w, dtype=torch.int32, device=device).view(bsz, w)
+    la, lb = ragged_lens(bsz, w, w, gen, device)
+    runs = srt(torch.randn(8, 1 << log2_run, generator=gen, device=device))
+    sb = torch.randint(-2**31, 2**31 - 1, (bsz, min(w, 65536)), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    logits = torch.randn(1, vocab, generator=gen, device=device) * 3
+    vlen = torch.tensor([vocab - 7], dtype=torch.int32, device=device)
+    r_rows, r_slots, r_experts = routing
+    rkeys = torch.randint(0, r_experts, (r_rows, r_slots), generator=gen, device=device, dtype=torch.int32)
+    rslots = torch.arange(r_rows * r_slots, dtype=torch.int32, device=device).view(r_rows, r_slots)
+    sbsz, ss, sd, sst = scan
+    scan_ops = scan_inputs(sbsz, ss, sd, sst, torch.bfloat16, gen, device)
+    calls = {
+        "merge": ("merge", lambda: ops.merge(a, b)),
+        "merge_kv": ("merge_kv", lambda: ops.merge_kv(a, iota, b, iota)),
+        "merge_batched": ("merge_batched", lambda: ops.merge_batched(ra, rb)),
+        "merge_kv_batched": ("merge_kv_batched", lambda: ops.merge_kv_batched(ka, kva, kb, kva)),
+        "merge_batched_ragged": ("merge_batched_ragged", lambda: ops.merge_batched_ragged(ra, rb, la, lb)),
+        "merge_kv_batched_ragged": ("merge_kv_batched_ragged",
+                                    lambda: ops.merge_kv_batched_ragged(ka, kva, kb, kva, la, lb)),
+        "merge_k": ("merge_k", lambda: ops.merge_k(runs)),
+        "sort int32": ("sort", lambda: ops.sort(xi)),
+        "sort float32": ("sort", lambda: ops.sort(xf)),
+        "sort_kv": ("sort_kv", lambda: ops.sort_kv(xf, iota)),
+        "sort_batched": ("sort_batched", lambda: ops.sort_batched(sb)),
+        "sort_kv_batched (routing)": ("sort_kv_batched", lambda: ops.sort_kv_batched(rkeys, rslots)),
+        "topk_batched": ("topk_batched", lambda: ops.topk_batched(logits, DIST_K)),
+        "topk_batched_ragged": ("topk_batched_ragged", lambda: ops.topk_batched_ragged(logits, DIST_K, vlen)),
+        "ssm_scan": ("ssm_scan_pallas", lambda: ks.ssm_scan(*scan_ops)),
+    }
+    # the fault cases' calls: float keys, so a nan fault laces them
+    fault_calls = {"merge": "merge", "sort": "sort float32", "sort_kv": "sort_kv",
+                   "merge_batched_ragged": "merge_batched_ragged", "merge_k": "merge_k",
+                   "topk_batched_ragged": "topk_batched_ragged", "ssm_scan_pallas": "ssm_scan"}
+
+    # (a) clean calls, verified, against the same calls with the guard off
+    clean, clean_launches = {}, {}
+    for name, (op, fn) in calls.items():
+        with env_vars(REPRO_GUARD="0"):
+            reset_launches()
+            clean[name] = fn()
+            sync()
+            clean_launches[name] = counts()
+        with env_vars(REPRO_GUARD_VERIFY="1"), use(Telemetry()) as tel:
+            reset_launches()
+            got = fn()
+            sync()
+            launched = counts()
+            served = tel.health[op].served_by
+        _same(got, clean[name], f"runtime: verified {name} against REPRO_GUARD=0")
+        check(launched == clean_launches[name], f"runtime: verified {name} launched {launched}, "
+                                                f"unguarded {clean_launches[name]}")
+        check(served == {label: 1}, f"runtime: {name} served_by {served}")
+        if on_card:
+            check(sum(launched.values()) > 0, f"runtime: {name} launched no kernel")
+    del got
+    print(f"runtime: (a) {len(calls)} clean calls verified (REPRO_GUARD_VERIFY=1) bit-identical to REPRO_GUARD=0, "
+          f"the same launch counts, served_by {{{label!r}: 1}}: " + ", ".join(
+              f"{k} {sum(v.values())}" for k, v in clean_launches.items()) + " launches")
+
+    # (b) injected faults
+    outcomes = {}
+    plans = [(cls, op) for cls in RUNTIME_EXPECT for op in RUNTIME_OPS] + [("launch", "ssm_scan_pallas")]
+    for cls, op in plans:
+        name = fault_calls[op]
+        want = RUNTIME_EXPECT[cls].get(op, "GuardedDispatchError")
+        with faults.inject(f"{cls}:{op}:0"), use(Telemetry()) as tel:
+            reset_launches()
+            try:
+                calls[name][1]()
+                sync()
+                raised = None
+            except (GuardedDispatchError, VerificationError) as e:
+                raised = type(e).__name__
+            launched = sum(counts().values())
+            fired = [(e.cls, e.op, e.index) for e in faults.fired_events()]
+            h = tel.health[op].as_dict()
+        check(raised == want, f"runtime: {cls} fault on {op} gave {raised}, want {want}")
+        expect_fired = [] if (op == "merge_k" and cls in ("vmem", "nan")) else [(cls, op, 0)]
+        check(fired[:1] == expect_fired, f"runtime: {cls} fault on {op} fired {fired}")
+        check(h["calls"] == 1 and h["exhausted"] == int(raised is not None), f"runtime: {cls} on {op} health {h}")
+        if on_card:
+            before_launch = raised is not None and cls in ("launch", "vmem")
+            check((launched == 0) == before_launch, f"runtime: {cls} fault on {op} launched {launched} kernels")
+        reset_launches()
+        _same(calls[name][1](), clean[name], f"runtime: {op} after a {cls} fault")
+        outcomes[f"{cls}:{op}"] = {"raised": raised, "launches": launched}
+    print(f"runtime: (b) {len(plans)} injected faults: " + ", ".join(
+        f"{k} {v['raised'] or 'served'} ({v['launches']} launches)" for k, v in outcomes.items())
+          + "; each next call without a plan bit-identical to the clean one")
+
+    # (c) R10's NaN-laced keys, verification on, no plan
+    r10 = {}
+    na_, nb_ = faults.nan_lace(a, "r10:a"), faults.nan_lace(b, "r10:b")
+    nruns = faults.nan_lace(runs, "r10:runs")
+    with env_vars(REPRO_GUARD_VERIFY="1"):
+        for what, fn in (("ops.merge", lambda: ops.merge(na_, nb_)), ("ops.merge_k", lambda: ops.merge_k(nruns))):
+            try:
+                fn()
+                r10[what] = None
+            except VerificationError as e:
+                r10[what] = type(e).__name__
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        backend = dist.get_backend()
+        cases = (("distributed_merge", lambda: D.distributed_merge(na_, nb_), None),
+                 ("distributed_sort", lambda: D.distributed_sort(faults.nan_lace(xf, "r10:x"), local_sort="kernel"), None),
+                 ("distributed_merge window exchange fault", lambda: D.distributed_merge(a, b),
+                  "exchange:distributed_merge:0:window"),
+                 ("distributed_sort exchange fault", lambda: D.distributed_sort(xf, local_sort="kernel"),
+                  "exchange:distributed_sort:0"))
+        for what, fn, plan in cases:
+            try:
+                with faults.inject(plan) if plan else contextlib.nullcontext():
+                    out = fn()
+                r10[what] = None
+            except VerificationError as e:
+                r10[what] = type(e).__name__
+        sorted_out = D.distributed_sort(faults.nan_lace(xf, "r10:x"), local_sort="kernel")
+        check(bool(res.keys_ordered(sorted_out[0][: int(sorted_out[1][0])])), "runtime: distributed_sort of NaN-laced keys")
+        dist_costs = {}
+        if on_card:  # the distributed calls always verify: the verdict's host ms a call
+            for what, fn in ((f"distributed_merge window 2 x 2^{log2n} float32", lambda: D.distributed_merge(a, b)),
+                             (f"distributed_sort 2^{log2n} int32", lambda: D.distributed_sort(xi, local_sort="kernel"))):
+                dist_costs[what] = in_turns(lambda: call_ms(fn, iters=3), {"unguarded_ms": {"REPRO_GUARD": "0"},
+                                                                           "guarded_ms": {}}, pairs=4)
+    finally:
+        dist.destroy_process_group()
+    want_r10 = {"ops.merge": "VerificationError", "ops.merge_k": "VerificationError",
+                "distributed_merge": "VerificationError", "distributed_sort": None,
+                "distributed_merge window exchange fault": "VerificationError",
+                "distributed_sort exchange fault": "VerificationError"}
+    check(r10 == want_r10, f"runtime: R10 {r10}, want {want_r10}")
+    print(f"runtime: (c) R10's NaN-laced keys with verification on: {r10} (distributed over {backend} at world "
+          f"size 1, where distributed_sort is one local total-order sort: its output of NaN-laced keys is sorted "
+          f"and verified)")
+    for what, c in dist_costs.items():
+        print(f"runtime: (c) {what} over {backend}, host ms a call: " + ", ".join(f"{k} {v:.5f}" for k, v in c.items())
+              + f" ({card})")
+    del na_, nb_, nruns, sorted_out
+
+    # (d) the cost of verification, (e) the cost of the guard
+    costs = {}
+    if on_card:
+        for what, fn, nkeys in (("ops.merge 2 x 2^%d float32" % log2n, calls["merge"][1], 2 * n),
+                                ("ops.sort 2^%d int32" % log2n, calls["sort int32"][1], n)):
+            out = fn()
+            costs[what] = in_turns(lambda: time_ms(fn, iters=10), {"unverified_ms": {"REPRO_GUARD_VERIFY": "0"},
+                                                                   "verified_ms": {"REPRO_GUARD_VERIFY": "1"}}, pairs=3)
+            costs[what].update(verifier_device_ms=time_ms(lambda: res.keys_ordered(out)),
+                               bound_ms=nkeys * VERIFY_BYTES_PER_KEY / HBM_BYTES_PER_S * 1e3)
+        tile, leaf = ops._sort_tile(vocab, None, None)
+        for what, fn, op, args, verifier in (
+                (f"sampler top-k (1, {vocab})", calls["topk_batched"][1], "topk_batched", (logits,),
+                 res.topk_verifier()),
+                (f"routing sort {tuple(routing[:2])}", calls["sort_kv_batched (routing)"][1], "sort_kv_batched",
+                 (rkeys, rslots), res.sorted_verifier())):
+            costs[what] = in_turns(lambda: host_us(fn, iters=100), {"unguarded_us": {"REPRO_GUARD": "0"},
+                                                                    "guarded_us": {}}, pairs=10,
+                                   base={"REPRO_GUARD_VERIFY": "0"})
+
+            def guard_only():  # the guard around a call that does nothing: its own host cost, meta included
+                return ops._guard(op, args, lambda *a: a[0], keys=(0,), meta=ops._sort_meta(args[0], tile, leaf, True),
+                                  verifier=verifier)
+
+            with env_vars(REPRO_GUARD_VERIFY="0"):
+                costs[what]["guard_only_us"] = host_us(guard_only, iters=5000) - host_us(lambda: args[0], iters=5000)
+    del clean, calls
+    for what, c in costs.items():
+        print(f"runtime: ({'d' if 'verified_ms' in c else 'e'}) {what}: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in c.items()) + f" ({card})")
+
+    # (f) serving with faults
+    cfg = get_config("tinyllama-1.1b")
+    cfg = cfg.reduced() if reduce else cfg
+    params = init_params(cfg, seed=0, device=device)
+    runs_out = []
+    for _ in range(2):
+        with use(Telemetry()) as tel, faults.inject("launch:serving.decode:1,2"):
+            eng = ServingEngine(cfg, params, batch=2, max_seq=64, device=device)
+            rng = np.random.default_rng(0)
+            for uid in range(3):
+                eng.submit(Request(uid=uid, prompt=rng.integers(1, cfg.vocab_size, 6).astype(np.int32),
+                                   max_new_tokens=4, temperature=0.0))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rep = eng.run_until_done()
+            runs_out.append((rep, trace_json_bytes(tel)))
+    (rep, raw), (rep2, raw2) = runs_out
+    check(rep.completed == 3 and rep.retries == 2 and rep.ok(), f"runtime: serving under faults {rep}")
+    check(raw == raw2, "runtime: the replayed serving trace differs")
+    trace = json.loads(raw)
+    check(trace_cli.check(trace, 1.05) == [], f"runtime: serving trace check {trace_cli.check(trace, 1.05)}")
+    del params, eng
+    print(f"runtime: (f) {cfg.name}{' (reduced)' if reduce else ' at full width'} served 3 greedy requests under "
+          f"launch:serving.decode:1,2: {rep.completed} completed, {rep.retries} retries, {rep.ticks} ticks; two runs' "
+          f"traces byte-identical ({len(raw)} bytes) and pass --check")
+
+    # (g) the trace smoke in a process of its own
+    if smoke:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "repro_torch.telemetry.smoke", "--out", path]
+                                 + ([] if on_card else ["--device", "cpu"]), env=env, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            check(run.returncode == 0, f"runtime: trace smoke failed: {run.stderr[-2000:]}")
+            checked = subprocess.run([sys.executable, "-m", "repro_torch.telemetry", "--check", path], env=env,
+                                     cwd=ROOT, capture_output=True, text=True, timeout=120)
+            check(checked.returncode == 0, f"runtime: --check of the smoke's trace: {checked.stdout}")
+        print(f"runtime: (g) {run.stdout.strip()}; {checked.stdout.strip()} ({time.perf_counter() - t0:.1f} s)")
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"faults": outcomes, "r10": r10, "costs": dict(costs, **dist_costs),
+            "serving": {"completed": rep.completed, "retries": rep.retries, "ticks": rep.ticks, "trace_bytes": len(raw)}}
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -3530,6 +3926,7 @@ def main() -> int:
     attention = phase_attention()
     moe = phase_moe(card=card)
     distributed = phase_distributed(card=card)
+    runtime = phase_runtime(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -3602,6 +3999,7 @@ def main() -> int:
           "P = 8; the times on rank 0's stages there: S1 one call on its 2^21 keys at chunk 512 (float32: their "
           "total-order keys and int32 indices), K3 and K4 sums over its 12 wide rounds, K7 the sum over the 3 "
           "rounds of its int32 combine, library_ms as in the entries above")
+    print(json.dumps({"runtime": runtime}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,10 +47,20 @@ Primitives:
   top-k, then a ``log2 P``-round butterfly (``exchange="butterfly"``,
   power-of-two ``P``) or an ``all_gather`` of the candidate runs.
 
-The reference's guarded fallback chains are not ported: the wrappers run
-the requested exchange and return the overflow flag, as the reference's
-unguarded path does.  Integer keys whose dtype a backend lacks (int16:
-neither gloo nor NCCL has it) are probed in int32 and moved as bytes.
+Every public wrapper but the ``_local`` forms is guarded
+(:func:`repro_torch.runtime.resilience.guarded_call`) and always verifies,
+as the reference's are.  A call has one attempt, labelled with the
+requested exchange, except :func:`distributed_sort`, whose ``sample``
+attempt is followed by ``capacity-2x``: the same sample sort on the same
+kernels at twice the capacity factor.  The reference's ``core-resort`` and
+``core-topk`` edges are not ported: a failure raises.  The verifier is
+collective: each rank checks its own slice on its device, one
+``all_gather`` of every rank's (count, input length, first and last
+total-order key) checks the rank boundaries and that the counts sum to
+the input's length, and one ``all_reduce(MAX)`` of the failure flags gives
+every rank the same verdict, so all raise together and none waits in a
+collective.  Integer keys whose dtype a backend lacks (int16: neither gloo
+nor NCCL has it) are probed in int32 and moved as bytes.
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.runtime import faults as _faults
+from repro_torch.runtime import resilience as _res
 from repro_torch.telemetry.spans import get_telemetry
 
 from .batched import (
@@ -73,7 +85,8 @@ from .batched import (
     merge_kv_batched,
     topk_batched,
 )
-from .merge_path import bisect, bisect_steps, diagonal_intersections, flip_desc, max_sentinel, merge_sort, result_type
+from .merge_path import (bisect, bisect_steps, diagonal_intersections, flip_desc, max_sentinel, merge_sort,
+                         result_type, total_order_keys)
 from .segmented import _masked_window_ranks
 
 __all__ = [
@@ -436,27 +449,35 @@ def _record_merge_telemetry(na: int, nb: int, p: int, itemsize: int, kv: bool, r
     tel.gauge("distributed.balance_ratio").set(float(nz.max() / nz.min()) if nz.size >= 2 else 1.0)
 
 
-def _distributed_merge_impl(ak, av, bk, bv, group, exchange: str):
-    """Shared wrapper: check the partition, pad this rank's shards to equal
-    length, run the body, and trim the segment to this rank's slice.
+def _merge_lengths(ak, av, bk, bv, group, exchange: str) -> Tuple[int, int]:
+    """Check a distributed merge's arguments and partition (a ``ValueError``
+    on every rank otherwise); return the global ``(na, nb)``."""
+    if exchange not in ("window", "gather"):
+        raise ValueError(f"exchange must be 'window' or 'gather', got {exchange!r}")
+    if av is not None and (av.shape != ak.shape or bv.shape != bk.shape):
+        raise ValueError(f"value shapes must match key shapes: keys {tuple(ak.shape)}/{tuple(bk.shape)}, "
+                         f"values {tuple(av.shape)}/{tuple(bv.shape)}")
+    _check_device(group, ak, av, bk, bv)
+    p, _ = _group_info(group)
+    rows = ak.shape[0]
+    if bk.shape[0] != rows:
+        raise ValueError(f"batch mismatch: {tuple(ak.shape)} vs {tuple(bk.shape)}")
+    lens = _shard_lengths(group, p, ak.device, rows=rows, na=ak.shape[-1], nb=bk.shape[-1])
+    return lens["na"], lens["nb"]
+
+
+def _distributed_merge_impl(ak, av, bk, bv, group, exchange: str, na: int, nb: int):
+    """Pad this rank's shards to equal length, run the body, and trim the
+    segment to this rank's slice (the arguments already through
+    :func:`_merge_lengths`).
 
     Shards are ``(R, na_i)`` / ``(R, nb_i)`` (values may be None); the
     result is this rank's ``(R, len_i)`` slice of the ``(R, na + nb)``
     merge, ``len_i`` the ceil-div partition of ``na + nb``.
     """
-    if exchange not in ("window", "gather"):
-        raise ValueError(f"exchange must be 'window' or 'gather', got {exchange!r}")
     kv = av is not None
-    if kv and (av.shape != ak.shape or bv.shape != bk.shape):
-        raise ValueError(f"value shapes must match key shapes: keys {tuple(ak.shape)}/{tuple(bk.shape)}, "
-                         f"values {tuple(av.shape)}/{tuple(bv.shape)}")
-    _check_device(group, ak, av, bk, bv)
     p, idx = _group_info(group)
     rows = ak.shape[0]
-    if bk.shape[0] != rows:
-        raise ValueError(f"batch mismatch: {tuple(ak.shape)} vs {tuple(bk.shape)}")
-    lens = _shard_lengths(group, p, ak.device, rows=rows, na=ak.shape[-1], nb=bk.shape[-1])
-    na, nb = lens["na"], lens["nb"]
     kd = result_type(ak.dtype, bk.dtype)
     ak, bk = ak.to(kd), bk.to(kd)
     if kv:
@@ -477,15 +498,81 @@ def _distributed_merge_impl(ak, av, bk, bv, group, exchange: str):
     return keys[:, :mine], (vals[:, :mine] if kv else None)
 
 
+def _group_verdict(keys: torch.Tensor, lens: torch.Tensor, in_len: int, group, *, overflow=None,
+                   replicated: bool = False, descending: bool = False) -> Optional[str]:
+    """The verdict, the same on every rank, on this rank's ``(R, L)`` output
+    ``keys``, of which row ``r``'s first ``lens[r]`` are valid.
+
+    Each rank checks its own valid prefixes on its device.  Unless the
+    output is ``replicated`` (a top-k), one ``all_gather`` of every rank's
+    (count, first and last total-order key) per row and its input length
+    ``in_len`` checks that the rank boundaries keep the order and that the
+    counts sum to the input's length.  One ``all_reduce(MAX)`` of the four
+    failure flags (with ``overflow``, a 0-d bool tensor) ends it, and one
+    host read.
+    """
+    p, _ = _group_info(group)
+    keys = keys if keys.ndim == 2 else keys[None, :]
+    lens = lens.to(torch.int64).reshape(-1)
+    bad = torch.zeros(4, dtype=torch.int32, device=keys.device)
+    bad[0] = ~_res.keys_ordered(keys, lens, descending=descending)
+    if not replicated:
+        rows, width = keys.shape
+        tok = total_order_keys(keys).to(torch.int64)
+        ends = torch.zeros((rows, 2), dtype=torch.int64, device=keys.device)
+        if width:
+            ends = torch.stack([tok[:, 0], tok.gather(1, (lens - 1).clamp(0, width - 1)[:, None])[:, 0]], 1)
+        in_lens = torch.full((rows, 1), in_len, dtype=torch.int64, device=keys.device)
+        table = _all_gather(torch.cat([lens[:, None], ends, in_lens], 1), p, group)  # (p, R, 4)
+        prev = torch.zeros(rows, dtype=torch.int64, device=keys.device)
+        seen = torch.zeros(rows, dtype=torch.bool, device=keys.device)
+        for r in range(p):
+            count, first, last = table[r, :, 0], table[r, :, 1], table[r, :, 2]
+            here = count > 0
+            bad[1] |= (seen & here & (prev > first)).any().to(torch.int32)
+            prev, seen = torch.where(here, last, prev), seen | here
+        bad[2] = (table[:, :, 0].sum(0) != table[:, :, 3].sum(0)).any()
+    if overflow is not None:
+        bad[3] = overflow
+    dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=group)
+    what = ("a rank's output is not in order", "two ranks' outputs are out of order across their boundary",
+            "the valid counts do not sum to the input's length", "bucket overflow (capacity exceeded)")
+    return "; ".join(msg for flag, msg in zip(bad.tolist(), what) if flag) or None
+
+
+def _guarded_merge(op: str, ak, av, bk, bv, group, exchange: str):
+    """One distributed merge through the guard: the requested exchange as
+    its one attempt, always verified.  Steps aside (the exchange runs
+    directly) where the guard does."""
+    na, nb = _merge_lengths(ak, av, bk, bv, group, exchange)
+    if not _res.guard_enabled() or _res.is_tracing():
+        return _distributed_merge_impl(ak, av, bk, bv, group, exchange, na, nb)
+    idx = _faults.next_index(op)
+    if av is None:
+        ak, bk = _faults.maybe_nan_lace(op, idx, (ak, bk), (0, 1))
+    else:
+        ak, av, bk, bv = _faults.maybe_nan_lace(op, idx, (ak, av, bk, bv), (0, 2))
+    in_len = ak.shape[-1] + bk.shape[-1]
+
+    def verify(out):
+        keys = out[0]
+        return _group_verdict(keys, torch.full((keys.shape[0],), keys.shape[1], device=keys.device), in_len, group)
+
+    return _res.guarded_call(op, [(exchange, lambda: _distributed_merge_impl(ak, av, bk, bv, group, exchange, na, nb))],
+                             index=idx, verifier=verify, verify=True)
+
+
 def distributed_merge(a: torch.Tensor, b: torch.Tensor, group=None, exchange: str = "window") -> torch.Tensor:
     """Merge two sorted arrays sharded over a process group.
 
     Each rank passes its contiguous shards of ``A`` and ``B`` and returns
     its ``ceil((|A| + |B|) / P)`` slice of the stable A-priority merge.
     ``exchange="window"`` moves each element once; ``"gather"`` is the
-    all-gather oracle, bit-identical to it.
+    all-gather oracle, bit-identical to it.  Guarded: a failed exchange
+    raises ``GuardedDispatchError``, an output out of order (unsorted or
+    NaN-laced inputs) ``VerificationError``, on every rank.
     """
-    keys, _ = _distributed_merge_impl(a[None, :], None, b[None, :], None, group, exchange)
+    keys, _ = _guarded_merge("distributed_merge", a[None, :], None, b[None, :], None, group, exchange)
     return keys[0]
 
 
@@ -495,7 +582,8 @@ def distributed_merge_kv(
     """Stable key-value :func:`distributed_merge`; values ride the same exchange.
     Safe for payload keys equal to the sentinel: ranks are length-masked,
     so a shard pad never shadows a real ``+inf``/``iinfo.max`` key."""
-    keys, vals = _distributed_merge_impl(ak[None, :], av[None, :], bk[None, :], bv[None, :], group, exchange)
+    keys, vals = _guarded_merge("distributed_merge_kv", ak[None, :], av[None, :], bk[None, :], bv[None, :], group,
+                                exchange)
     return keys[0], vals[0]
 
 
@@ -503,7 +591,7 @@ def distributed_merge_batched(a: torch.Tensor, b: torch.Tensor, group=None, exch
     """Batched :func:`distributed_merge`: ``(R, na_i) + (R, nb_i)`` shards, the
     merge axis sharded and the rows on every rank.  Every row has its own
     cut table; all rows share the exchanges."""
-    keys, _ = _distributed_merge_impl(a, None, b, None, group, exchange)
+    keys, _ = _guarded_merge("distributed_merge_batched", a, None, b, None, group, exchange)
     return keys
 
 
@@ -511,7 +599,7 @@ def distributed_merge_kv_batched(
     ak: torch.Tensor, av: torch.Tensor, bk: torch.Tensor, bv: torch.Tensor, group=None, exchange: str = "window"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched :func:`distributed_merge_kv`."""
-    return _distributed_merge_impl(ak, av, bk, bv, group, exchange)
+    return _guarded_merge("distributed_merge_kv_batched", ak, av, bk, bv, group, exchange)
 
 
 def distributed_merge_local(a_shard: torch.Tensor, b_shard: torch.Tensor, group=None) -> torch.Tensor:
@@ -679,7 +767,15 @@ def distributed_sort(
     Each rank passes its shard; the shards must be ``P`` equal parts (the
     bucket capacity is a function of the shard length, and every rank's
     must agree).  The concatenation over ranks of each bucket's first
-    ``count`` elements is the sorted array when ``overflowed`` is false.
+    ``count`` elements is the sorted array.
+
+    Guarded and verified (:func:`_group_verdict`, the overflow flag
+    included): a bucket overflow, an output out of order or counts that do
+    not sum to the input's length reject the ``sample`` attempt, and the
+    ``capacity-2x`` attempt runs the same sort at ``2 * capacity_factor``,
+    so the padded output is then twice as wide.  When that fails too, every
+    rank raises (``VerificationError``, or ``GuardedDispatchError`` for a
+    failed launch).
     """
     _check_sort_args(local_sort, combine)
     _check_device(group, x)
@@ -687,7 +783,21 @@ def distributed_sort(
     n = _shard_lengths(group, p, x.device, n=x.shape[0])["n"]
     if n % p or n == 0:
         raise ValueError(f"distributed_sort needs {p} equal nonempty shards, got {n} elements in all")
-    return distributed_sort_local(x, group, capacity_factor, local_sort, combine)
+    if not _res.guard_enabled() or _res.is_tracing():
+        return distributed_sort_local(x, group, capacity_factor, local_sort, combine)
+    idx = _faults.next_index("distributed_sort")
+    (x,) = _faults.maybe_nan_lace("distributed_sort", idx, (x,), (0,))
+
+    def run(cf):
+        return lambda: distributed_sort_local(x, group, cf, local_sort, combine)
+
+    def verify(out):
+        keys, count, overflow = out
+        return _group_verdict(keys, count, x.shape[0], group, overflow=overflow)
+
+    return _res.guarded_call("distributed_sort", [("sample", run(capacity_factor)),
+                                                  ("capacity-2x", run(2.0 * capacity_factor))],
+                             index=idx, verifier=verify, verify=True)
 
 
 # ---------------------------------------------------------------------------
@@ -777,7 +887,22 @@ def _distributed_topk(x: torch.Tensor, k: int, group, exchange: str, batched: bo
     m = -(-v // p)
     if min(v - (p - 1) * m, m) < k:  # the last shard is the shortest
         raise ValueError(f"every shard must hold at least k={k} elements: {v} over {p} ranks")
-    return _topk_local_body(x, k=k, group=group, p=p, exchange=exchange, batched=batched, offset=idx * m)
+
+    def run(x):
+        return lambda: _topk_local_body(x, k=k, group=group, p=p, exchange=exchange, batched=batched, offset=idx * m)
+
+    if not _res.guard_enabled() or _res.is_tracing():
+        return run(x)()
+    op = "distributed_topk_batched" if batched else "distributed_topk"
+    index = _faults.next_index(op)
+    (x,) = _faults.maybe_nan_lace(op, index, (x,), (0,))
+
+    def verify(out):
+        vals, ids = out
+        ids = ids if ids.ndim == 2 else ids[None, :]
+        return _group_verdict(vals, (ids >= 0).sum(1), x.shape[-1], group, replicated=True, descending=True)
+
+    return _res.guarded_call(op, [(exchange, run(x))], index=index, verifier=verify, verify=True)
 
 
 def distributed_topk(x: torch.Tensor, k: int, group=None, exchange: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:

@@ -64,6 +64,11 @@ MERGE_ROWS_KV_SPAN = 2048
 # thread fewer outputs): kThreads * kE<true> in csrc/sort_round.cu, which
 # must agree.
 SORT_ROUND_KV_SPAN = 2048
+# The most outputs per block of K3: kThreads * kE<false> in csrc/sort_round.cu.
+SORT_ROUND_SPAN = 4096
+# S1's block for chunks up to it (one warp of kE = MAX_TILE / 256 keys a
+# thread): kWarpSpan in csrc/sort_tiles.cu; wider chunks take MAX_TILE.
+SORT_TILES_WARP_SPAN = 512
 KEY_DTYPES = (torch.int16, torch.int32)
 MERGE_KEY_DTYPES = (torch.int16, torch.int32, torch.float32, torch.bfloat16)
 MERGE_VALUE_DTYPES = (torch.int32, torch.float32)
@@ -82,6 +87,28 @@ _ARGTYPES = {
     "merge_batched_ragged": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _P],
     "merge_kv_batched_ragged": [_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _I, _I, _P],
 }
+
+
+def _spad_slots(n: int, size: int) -> int:
+    """``spad_slots<T>(n)`` of csrc/segment_merge.cuh: ``n`` elements of
+    ``size`` bytes with one pad slot every 128 bytes, in 16-byte vectors."""
+    vec = 16 // size
+    padded = n + (n // (128 // size) + 1) * (4 // size)
+    return -(-padded // vec) * vec
+
+
+def smem_bytes(kernel: str, key_bytes: int, values: bool = False, chunk: int = MAX_TILE) -> int:
+    """The dynamic shared memory one block of ``kernel`` requests, as the
+    C sources size it from the spans above: ``"merge"`` (K1/K2), ``"rows"``
+    (K5-K8), ``"round"`` (K3/K4, their widest block) and ``"tiles"`` (S1 at
+    ``chunk``, two buffers).  Values are 4 bytes."""
+    if kernel == "tiles":
+        span = SORT_TILES_WARP_SPAN if chunk <= SORT_TILES_WARP_SPAN else MAX_TILE
+    else:
+        span = {"merge": (MERGE_SPAN, MERGE_KV_SPAN), "rows": (MERGE_ROWS_SPAN, MERGE_ROWS_KV_SPAN),
+                "round": (SORT_ROUND_SPAN, SORT_ROUND_KV_SPAN)}[kernel][int(values)]
+    need = _spad_slots(span + 1, key_bytes) * key_bytes + (_spad_slots(span + 1, 4) * 4 if values else 0)
+    return 2 * need if kernel == "tiles" else need
 
 
 def _is_pow2(n: int) -> bool:

@@ -28,6 +28,17 @@ dispatch:
 
 A CUDA tensor launches the kernels or raises; a CPU tensor runs their
 plain versions.  There is no fallback chain from one to another.
+
+**Guarded dispatch**: every public function routes through
+:func:`repro_torch.runtime.resilience.guarded_call` under the reference's
+op name, with its geometry (``meta``: length, tile, leaf, and the
+largest block's shared memory, ``merge_path.smem_bytes``), the positions
+of its key operands for the ``nan`` fault, and its verifier.  One attempt
+(``"kernel"`` on a CUDA tensor, ``"plain"`` on a CPU one): a failed
+preflight or launch raises ``GuardedDispatchError``, an output that fails
+its verifier (while verification is active) ``VerificationError``.
+Argument errors (dtypes, shapes, a tile that is not a power of two) raise
+before the guard, as they do in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import torch
 
 from repro_torch.core import batched as _bat
 from repro_torch.core import merge_path as _mp
+from repro_torch.runtime import faults as _faults
+from repro_torch.runtime import resilience as _res
 
 from . import merge_path as _kern
 from . import tune as _tune
@@ -62,6 +75,48 @@ def _sort_tile(n: int, tile: Optional[int], leaf: Optional[int]) -> Tuple[int, i
 
 
 # ---------------------------------------------------------------------------
+# guarded dispatch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _meta(n: int, dtype: torch.dtype, tile=None, leaf=None, batch: int = 1, ragged: bool = False,
+          smem: Optional[int] = None) -> dict:
+    """The call's geometry for the preflight and the ``op/`` span: the
+    reference's keys, with its dtype names, and ``smem`` for a call that
+    launches a kernel itself."""
+    meta = {"n": int(n), "batch": int(batch), "dtype": str(dtype).removeprefix("torch."),
+            "tile": None if tile is None else int(tile), "leaf": None if leaf is None else int(leaf),
+            "ragged": bool(ragged)}
+    if smem is not None:
+        meta["smem"] = int(smem)
+    return meta
+
+
+def _guard(op: str, args: tuple, run, *, keys=(), meta: Optional[dict] = None, verifier=None):
+    """One call of ``op`` through the guard: ``run(*args)`` as its one
+    attempt.  ``keys`` are the positions of the key operands in ``args``
+    for the ``nan`` fault.  Steps aside under ``REPRO_GUARD=0``,
+    ``torch.compile`` and CUDA graph capture."""
+    if not _res.guard_enabled() or _res.is_tracing():
+        return run(*args)
+    idx = _faults.next_index(op)
+    args = _faults.maybe_nan_lace(op, idx, args, keys)
+    return _res.guarded_call(op, [(_res.attempt_label(args[0]), lambda: run(*args))], index=idx, meta=meta,
+                             verifier=verifier)
+
+
+def _ragged_verifier(a_lens, b_lens, bsz: int, na: int, nb: int):
+    """Order over each row's merged valid prefix of a ragged merge."""
+
+    def check(out):
+        keys = out[0] if isinstance(out, tuple) else out
+        lens = _bat._as_lens(a_lens, bsz, na, keys.device) + _bat._as_lens(b_lens, bsz, nb, keys.device)
+        return _res.sorted_verifier(lens)(out)
+
+    return check
+
+
+# ---------------------------------------------------------------------------
 # merges
 # ---------------------------------------------------------------------------
 
@@ -76,9 +131,15 @@ def merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf:
     n = a.shape[0] + b.shape[0]
     tile, leaf = _resolve(n, tile, leaf)
     dtype = _mp.result_type(a.dtype, b.dtype)
-    if n <= tile:
-        return _mp.merge(a, b)
-    return _kern.merge(a.to(dtype).contiguous(), b.to(dtype).contiguous(), tile=tile, leaf=leaf)
+
+    def run(a, b):
+        if n <= tile:
+            return _mp.merge(a, b)
+        return _kern.merge(a.to(dtype).contiguous(), b.to(dtype).contiguous(), tile=tile, leaf=leaf)
+
+    return _guard("merge", (a, b), run, keys=(0, 1),
+                  meta=_meta(n, dtype, tile, leaf, smem=_kern.smem_bytes("merge", dtype.itemsize)),
+                  verifier=_res.sorted_verifier())
 
 
 def merge_kv(
@@ -96,12 +157,18 @@ def merge_kv(
     tile, leaf = _resolve(n, tile, leaf)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
-    if n <= tile:
-        return _mp.merge_kv(ak, av, bk, bv)
-    return _kern.merge_kv(
-        ak.to(kd).contiguous(), av.to(vd).contiguous(), bk.to(kd).contiguous(), bv.to(vd).contiguous(),
-        tile=tile, leaf=leaf,
-    )
+
+    def run(ak, av, bk, bv):
+        if n <= tile:
+            return _mp.merge_kv(ak, av, bk, bv)
+        return _kern.merge_kv(
+            ak.to(kd).contiguous(), av.to(vd).contiguous(), bk.to(kd).contiguous(), bv.to(vd).contiguous(),
+            tile=tile, leaf=leaf,
+        )
+
+    return _guard("merge_kv", (ak, av, bk, bv), run, keys=(0, 2),
+                  meta=_meta(n, kd, tile, leaf, smem=_kern.smem_bytes("merge", kd.itemsize, values=True)),
+                  verifier=_res.sorted_verifier())
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -129,10 +196,16 @@ def merge_batched(
     """
     n = a.shape[1] + b.shape[1]
     tile, leaf = _resolve(n, tile, leaf)
-    if n <= tile:
-        return _bat.merge_batched(a, b)
     dtype = _mp.result_type(a.dtype, b.dtype)
-    return _kern.merge_batched(_rows(a.to(dtype)), _rows(b.to(dtype)), tile=tile, leaf=leaf)
+
+    def run(a, b):
+        if n <= tile:
+            return _bat.merge_batched(a, b)
+        return _kern.merge_batched(_rows(a.to(dtype)), _rows(b.to(dtype)), tile=tile, leaf=leaf)
+
+    return _guard("merge_batched", (a, b), run, keys=(0, 1),
+                  meta=_meta(n, dtype, tile, leaf, batch=a.shape[0], smem=_kern.smem_bytes("rows", dtype.itemsize)),
+                  verifier=_res.sorted_verifier())
 
 
 def merge_kv_batched(
@@ -149,13 +222,20 @@ def merge_kv_batched(
     values."""
     n = ak.shape[1] + bk.shape[1]
     tile, leaf = _resolve(n, tile, leaf)
-    if n <= tile:
-        return _bat.merge_kv_batched(ak, av, bk, bv)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
-    ak, av = _kv_rows(ak.to(kd), av.to(vd))
-    bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
-    return _kern.merge_kv_batched(ak, av, bk, bv, tile=tile, leaf=leaf)
+
+    def run(ak, av, bk, bv):
+        if n <= tile:
+            return _bat.merge_kv_batched(ak, av, bk, bv)
+        ak, av = _kv_rows(ak.to(kd), av.to(vd))
+        bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
+        return _kern.merge_kv_batched(ak, av, bk, bv, tile=tile, leaf=leaf)
+
+    return _guard("merge_kv_batched", (ak, av, bk, bv), run, keys=(0, 2),
+                  meta=_meta(n, kd, tile, leaf, batch=ak.shape[0],
+                             smem=_kern.smem_bytes("rows", kd.itemsize, values=True)),
+                  verifier=_res.sorted_verifier())
 
 
 def merge_batched_ragged(
@@ -175,12 +255,20 @@ def merge_batched_ragged(
     """
     (bsz, na), nb = a.shape, b.shape[1]
     tile, leaf = _resolve(na + nb, tile, leaf)
-    if na + nb <= tile:
-        return _bat.merge_batched_ragged(a, b, a_lens, b_lens)
     dtype = _mp.result_type(a.dtype, b.dtype)
-    a_lens = _bat._as_lens(a_lens, bsz, na, a.device)
-    b_lens = _bat._as_lens(b_lens, bsz, nb, a.device)
-    return _kern.merge_batched_ragged(_rows(a.to(dtype)), _rows(b.to(dtype)), a_lens, b_lens, tile=tile, leaf=leaf)
+
+    def run(a, b, a_lens, b_lens):
+        if na + nb <= tile:
+            return _bat.merge_batched_ragged(a, b, a_lens, b_lens)
+        a_lens = _bat._as_lens(a_lens, bsz, na, a.device)
+        b_lens = _bat._as_lens(b_lens, bsz, nb, a.device)
+        return _kern.merge_batched_ragged(_rows(a.to(dtype)), _rows(b.to(dtype)), a_lens, b_lens, tile=tile,
+                                          leaf=leaf)
+
+    return _guard("merge_batched_ragged", (a, b, a_lens, b_lens), run, keys=(0, 1),
+                  meta=_meta(na + nb, dtype, tile, leaf, batch=bsz, ragged=True,
+                             smem=_kern.smem_bytes("rows", dtype.itemsize)),
+                  verifier=_ragged_verifier(a_lens, b_lens, bsz, na, nb))
 
 
 def merge_kv_batched_ragged(
@@ -199,15 +287,22 @@ def merge_kv_batched_ragged(
     are sentinel and the values zero."""
     (bsz, na), nb = ak.shape, bk.shape[1]
     tile, leaf = _resolve(na + nb, tile, leaf)
-    if na + nb <= tile:
-        return _bat.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
-    a_lens = _bat._as_lens(a_lens, bsz, na, ak.device)
-    b_lens = _bat._as_lens(b_lens, bsz, nb, ak.device)
-    ak, av = _kv_rows(ak.to(kd), av.to(vd))
-    bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
-    return _kern.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens, tile=tile, leaf=leaf)
+
+    def run(ak, av, bk, bv, a_lens, b_lens):
+        if na + nb <= tile:
+            return _bat.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens)
+        a_lens = _bat._as_lens(a_lens, bsz, na, ak.device)
+        b_lens = _bat._as_lens(b_lens, bsz, nb, ak.device)
+        ak, av = _kv_rows(ak.to(kd), av.to(vd))
+        bk, bv = _kv_rows(bk.to(kd), bv.to(vd))
+        return _kern.merge_kv_batched_ragged(ak, av, bk, bv, a_lens, b_lens, tile=tile, leaf=leaf)
+
+    return _guard("merge_kv_batched_ragged", (ak, av, bk, bv, a_lens, b_lens), run, keys=(0, 2),
+                  meta=_meta(na + nb, kd, tile, leaf, batch=bsz, ragged=True,
+                             smem=_kern.smem_bytes("rows", kd.itemsize, values=True)),
+                  verifier=_ragged_verifier(a_lens, b_lens, bsz, na, nb))
 
 
 def merge_k(
@@ -231,11 +326,26 @@ def merge_k(
     if not isinstance(runs, torch.Tensor) or runs.ndim != 2:
         raise ValueError(f"expected a (k, n) runs tensor, got {getattr(runs, 'shape', type(runs))}")
     k, n = runs.shape
-    sent = _mp.max_sentinel(runs.dtype)
     if lens is None:
         run_lens = torch.full((k,), n, dtype=torch.int32, device=runs.device)
     else:
         run_lens = _bat._as_lens(lens, k, n, runs.device)
+
+    def run(runs):
+        return _merge_k_rounds(runs, run_lens, tile, leaf)
+
+    # as in the reference, the runs are not NaN-laced here: the rounds are
+    # guarded calls of their own, which a plan naming them laces
+    return _guard("merge_k", (runs,), run,
+                  meta=_meta(k * n, runs.dtype, batch=k, ragged=True),
+                  verifier=lambda out: _res.sorted_verifier(run_lens.sum().reshape(1))(out))
+
+
+def _merge_k_rounds(runs: torch.Tensor, run_lens: torch.Tensor, tile: Optional[int], leaf: Optional[int]) -> torch.Tensor:
+    """The tournament of :func:`merge_k`: ``ceil(log2 k)`` guarded
+    :func:`merge_batched_ragged` rounds over the power-of-two padded runs."""
+    k, n = runs.shape
+    sent = _mp.max_sentinel(runs.dtype)
     if k == 1:  # no round runs: mask the tail here
         return _bat._mask_rows(runs, run_lens, sent)[0]
     stacked, run_lens = _bat._pad_runs_pow2(_rows(runs), run_lens, sent)
@@ -330,6 +440,37 @@ def _argsort_batched(
     return perm
 
 
+def _sort_rows(x: torch.Tensor, tile: int, leaf: int) -> torch.Tensor:
+    """Row-wise sort of ``(B, n)``, ``n >= 2``: integer rows on the keys-only
+    rounds (K3), float rows gathered through the stable argsort of their
+    total-order keys (K4)."""
+    bsz, n = x.shape
+    if x.is_floating_point():
+        return torch.gather(x, 1, _argsort_batched(x, n, tile, leaf).long())
+    xp = _bat._pad_rows_pow2(x, _mp.max_sentinel(x.dtype))
+    m = xp.shape[1]
+    return _sort_rounds(xp.reshape(-1), m, tile, leaf).reshape(bsz, m)[:, :n]
+
+
+def _sort_kv_rows(keys: torch.Tensor, values: torch.Tensor, tile: int, leaf: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise stable key-value sort of ``(B, n)``, ``n >= 2``."""
+    n = keys.shape[1]
+    if keys.is_floating_point() or values.dtype != torch.int32:
+        perm = _argsort_batched(keys, n, tile, leaf).long()
+        return torch.gather(keys, 1, perm), torch.gather(values, 1, perm)
+    return _sort_kv_batched_impl(keys, values, n, tile, leaf)
+
+
+def _sort_meta(keys: torch.Tensor, tile: int, leaf: int, values: bool, ragged: bool = False) -> dict:
+    """A sort's geometry; its ``smem`` the larger block of its S1 launch and
+    its wide rounds (K3, or K4 for values and for float keys, which ride
+    with an index payload)."""
+    bsz, n = (1, keys.shape[0]) if keys.ndim == 1 else keys.shape
+    kb, values = keys.element_size(), values or keys.is_floating_point()
+    smem = max(_kern.smem_bytes("tiles", kb, values, min(tile, _kern.MAX_TILE)), _kern.smem_bytes("round", kb, values))
+    return _meta(n, keys.dtype, tile, leaf, batch=bsz, ragged=ragged, smem=smem)
+
+
 def sort_batched(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None) -> torch.Tensor:
     """Sort every row of ``(B, n)`` ascending.  The batch axis is folded into
     the run-pair axis, so a round is one launch whatever ``B`` is.
@@ -338,15 +479,12 @@ def sort_batched(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[
     through the stable argsort of their total-order keys (K4), so NaN
     sorts last and equal floats (``-0.0`` and ``+0.0``) keep their order.
     """
-    bsz, n = x.shape
+    n = x.shape[1]
     if n <= 1:
         return x
     tile, leaf = _sort_tile(n, tile, leaf)
-    if x.is_floating_point():
-        return torch.gather(x, 1, _argsort_batched(x, n, tile, leaf).long())
-    xp = _bat._pad_rows_pow2(x, _mp.max_sentinel(x.dtype))
-    m = xp.shape[1]
-    return _sort_rounds(xp.reshape(-1), m, tile, leaf).reshape(bsz, m)[:, :n]
+    return _guard("sort_batched", (x,), lambda x: _sort_rows(x, tile, leaf), keys=(0,),
+                  meta=_sort_meta(x, tile, leaf, values=False), verifier=_res.sorted_verifier())
 
 
 def sort_kv_batched(
@@ -357,31 +495,39 @@ def sort_kv_batched(
     Integer keys with int32 values run K4 directly; float keys, or values
     of another dtype, are gathered through the stable argsort.
     """
-    bsz, n = keys.shape
+    n = keys.shape[1]
     if n <= 1:
         return keys, values
     tile, leaf = _sort_tile(n, tile, leaf)
-    if keys.is_floating_point() or values.dtype != torch.int32:
-        perm = _argsort_batched(keys, n, tile, leaf).long()
-        return torch.gather(keys, 1, perm), torch.gather(values, 1, perm)
-    return _sort_kv_batched_impl(keys, values, n, tile, leaf)
+    return _guard("sort_kv_batched", (keys, values), lambda k, v: _sort_kv_rows(k, v, tile, leaf), keys=(0,),
+                  meta=_sort_meta(keys, tile, leaf, values=True), verifier=_res.sorted_verifier())
 
 
 def sort(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None) -> torch.Tensor:
-    """Bottom-up merge sort of a 1-D array: :func:`sort_batched` of one row."""
-    if x.shape[0] <= 1:
+    """Bottom-up merge sort of a 1-D array: the rounds of :func:`sort_batched` on one row."""
+    n = x.shape[0]
+    if n <= 1:
         return x
-    return sort_batched(x[None, :], tile=tile, leaf=leaf)[0]
+    tile, leaf = _sort_tile(n, tile, leaf)
+    return _guard("sort", (x,), lambda x: _sort_rows(x[None, :], tile, leaf)[0], keys=(0,),
+                  meta=_sort_meta(x, tile, leaf, values=False), verifier=_res.sorted_verifier())
 
 
 def sort_kv(
     keys: torch.Tensor, values: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable key-value merge sort of 1-D arrays: :func:`sort_kv_batched` of one row."""
-    if keys.shape[0] <= 1:
+    """Stable key-value merge sort of 1-D arrays: the rounds of :func:`sort_kv_batched` on one row."""
+    n = keys.shape[0]
+    if n <= 1:
         return keys, values
-    ks, vs = sort_kv_batched(keys[None, :], values[None, :], tile=tile, leaf=leaf)
-    return ks[0], vs[0]
+    tile, leaf = _sort_tile(n, tile, leaf)
+
+    def run(k, v):
+        ks, vs = _sort_kv_rows(k[None, :], v[None, :], tile, leaf)
+        return ks[0], vs[0]
+
+    return _guard("sort_kv", (keys, values), run, keys=(0,), meta=_sort_meta(keys, tile, leaf, values=True),
+                  verifier=_res.sorted_verifier())
 
 
 def topk_batched(
@@ -404,8 +550,13 @@ def topk_batched(
     n = x.shape[1]
     k = min(k, n)
     tile, leaf = _sort_tile(n, tile, leaf)
-    top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf)[:, :k]
-    return torch.gather(x, 1, top_idx.long()), top_idx
+
+    def run(x):
+        top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf)[:, :k]
+        return torch.gather(x, 1, top_idx.long()), top_idx
+
+    return _guard("topk_batched", (x,), run, keys=(0,), meta=_sort_meta(x, tile, leaf, values=True),
+                  verifier=_res.topk_verifier())
 
 
 def topk_batched_ragged(
@@ -431,5 +582,10 @@ def topk_batched_ragged(
     k = min(k, n)
     lens = _bat._as_lens(lens, bsz, n, x.device)
     tile, leaf = _sort_tile(n, tile, leaf)
-    top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf, lens)[:, :k]
-    return _bat._mask_topk(x, top_idx, lens)
+
+    def run(x, lens):
+        top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf, lens)[:, :k]
+        return _bat._mask_topk(x, top_idx, lens)
+
+    return _guard("topk_batched_ragged", (x, lens), run, keys=(0,),
+                  meta=_sort_meta(x, tile, leaf, values=True, ragged=True), verifier=_res.topk_verifier())

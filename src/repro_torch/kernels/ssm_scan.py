@@ -37,6 +37,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.runtime import resilience as _res
+
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -153,6 +155,10 @@ def ssm_scan(
     :data:`GRAD_CHUNK` steps (``chunk`` is then unused), and K10 in the
     backward.  Asking for ``checkpoints`` then raises: the Function keeps
     its own, and the checkpoints returned would carry no gradient.
+    Otherwise the call is guarded as the reference's ``ssm_scan_pallas``
+    is (that op name, no verifier): a failed launch raises
+    ``GuardedDispatchError``.  The guard does not wrap the Function, as
+    the reference's steps aside under its autodiff.
     """
     _check(dt, x, bmat, cmat, a, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a)):
@@ -160,7 +166,16 @@ def ssm_scan(
             raise ValueError("ssm_scan: checkpoints=True carries no gradient; call it without checkpoints "
                              "(the gradient's own are kept every GRAD_CHUNK steps) or under torch.no_grad()")
         return SsmScanFunction.apply(dt, x, bmat, cmat, a)
-    return _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
+    if x.is_cuda:  # operands the kernel refuses are the caller's error, raised before the guard
+        check_kernel_rules(dt, x, bmat, cmat, a, chunk, checkpoints)
+    if not _res.guard_enabled() or _res.is_tracing():
+        return _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
+    bsz, s, d = x.shape
+    meta = {"n": s, "batch": bsz, "dtype": str(x.dtype).removeprefix("torch."), "seq": s, "d_model": d,
+            "state": bmat.shape[-1], "chunk": chunk}
+    return _res.guarded_call("ssm_scan_pallas",
+                             [(_res.attempt_label(x), lambda: _forward(dt, x, bmat, cmat, a, chunk, checkpoints))],
+                             meta=meta)
 
 
 def check_kernel_rules(dt, x, bmat, cmat, a, chunk: int, checkpoints: bool, dy=None) -> None:

@@ -1,5 +1,47 @@
-"""Host-side runtime: straggler watch and the restart-on-failure supervisor."""
+"""Host-side runtime: the guarded dispatch with its fault injector, the
+straggler watch and the restart-on-failure supervisor.
+
+* :mod:`repro_torch.runtime.resilience`: guarded kernel dispatch that
+  preflights, verifies and raises, with per-op health counters;
+* :mod:`repro_torch.runtime.faults`: the deterministic fault injector
+  (``REPRO_FAULTS`` and :func:`inject`);
+* :mod:`repro_torch.runtime.fault_tolerance`: the train loop's straggler
+  watch and supervisor.
+"""
 
 from .fault_tolerance import StragglerMonitor, TrainLoopSupervisor
+from .faults import FaultSpec, InjectedFault, fired_events, inject, nan_lace, parse_plan, reset_counters
+from .resilience import (
+    FallbackWarning,
+    GuardedDispatchError,
+    OpHealth,
+    VerificationError,
+    guard_enabled,
+    guarded_call,
+    health_summary,
+    preflight,
+    reset_health,
+    verify_active,
+)
 
-__all__ = ["StragglerMonitor", "TrainLoopSupervisor"]
+__all__ = [
+    "FallbackWarning",
+    "FaultSpec",
+    "GuardedDispatchError",
+    "InjectedFault",
+    "OpHealth",
+    "StragglerMonitor",
+    "TrainLoopSupervisor",
+    "VerificationError",
+    "fired_events",
+    "guard_enabled",
+    "guarded_call",
+    "health_summary",
+    "inject",
+    "nan_lace",
+    "parse_plan",
+    "preflight",
+    "reset_counters",
+    "reset_health",
+    "verify_active",
+]

@@ -22,7 +22,9 @@ in ``engine.done`` with an explicit terminal ``status`` —
 A failed tick backs off for ``min(backoff_base * 2**(streak-1),
 backoff_cap)`` ticks and retries; every retry is counted in
 ``ServingReport.retries``, so a run with a faulting kernel never reports
-``ok()`` with zero retries.  All timing is counted in engine ticks, never
+``ok()`` with zero retries.  A fault plan can fail a tick's decode
+(``launch:serving.decode:<ticks>``, :mod:`repro_torch.runtime.faults`),
+as in the reference.  All timing is counted in engine ticks, never
 wall clock, so every degradation path replays exactly.
 """
 
@@ -39,6 +41,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward_decode, init_caches
 from repro_torch.models.transformer import _dtype
+from repro_torch.runtime import faults as _faults
 from repro_torch.telemetry import WALL, TickClock, get_telemetry
 from repro_torch.train.steps import _cast
 
@@ -283,7 +286,10 @@ class ServingEngine:
                 sp.set("cooldown", True)
                 tel.counter("serving.cooldown_ticks").add(1)
                 return
+            idx = _faults.next_index("serving.decode")
             try:
+                if _faults.should_fire("launch", "serving.decode", idx, label="decode"):
+                    raise _faults.InjectedFault(f"injected launch failure: serving.decode[{idx}]")
                 self._tick_body()
             except Exception as err:  # the engine keeps serving; the retry is counted
                 sp.set("failed", type(err).__name__)

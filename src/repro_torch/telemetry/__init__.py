@@ -1,5 +1,8 @@
-"""Stdlib-only telemetry: spans on a wall or tick clock, counters, gauges, histograms."""
+"""Stdlib-only telemetry: spans on a wall or tick clock, counters, gauges,
+exact-percentile histograms, the guarded dispatch's health registry, and
+Chrome/Perfetto trace export (``python -m repro_torch.telemetry --help``)."""
 
+from .export import chrome_trace, load_trace, summary, trace_json_bytes, write_trace
 from .spans import (
     TICK_SCALE,
     WALL,
@@ -11,6 +14,8 @@ from .spans import (
     TickClock,
     WallClock,
     get_telemetry,
+    reset_telemetry,
+    use,
     wall_seconds,
 )
 
@@ -24,6 +29,13 @@ __all__ = [
     "Telemetry",
     "TickClock",
     "WallClock",
+    "chrome_trace",
     "get_telemetry",
+    "load_trace",
+    "reset_telemetry",
+    "summary",
+    "trace_json_bytes",
+    "use",
     "wall_seconds",
+    "write_trace",
 ]

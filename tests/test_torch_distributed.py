@@ -330,11 +330,7 @@ def test_merge_telemetry_matches_the_reference(na, nb, p, rows):
     with ref_spans.use(ref_tel):
         RD._record_merge_telemetry("distributed_merge", jnp.asarray(a), jnp.asarray(b),
                                    SimpleNamespace(shape={"x": p}), "x", kv=True)
-    saved = port_spans._ROOT
-    port_spans._ROOT = port_tel
-    try:
+    with port_spans.use(port_tel):
         D._record_merge_telemetry(na, nb, p, 4, True, rows)
-    finally:
-        port_spans._ROOT = saved
     assert {k: c.value for k, c in port_tel.counters.items()} == {k: c.value for k, c in ref_tel.counters.items()}
     assert {k: g.last for k, g in port_tel.gauges.items()} == {k: g.last for k, g in ref_tel.gauges.items()}

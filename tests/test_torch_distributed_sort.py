@@ -10,7 +10,12 @@ one answer, so the port's ``"kernel"`` local sort is held against it too).
 Every rank's padded bucket, count and overflow flag is compared bit for
 bit: int32 keys with ``iinfo.max`` payloads, a skewed input that overflows
 at a small ``capacity_factor``, normal float32 keys (no subnormals, no
-signed zeros: ROADMAP R2, R4).  The reference's two combines give the same
+signed zeros: ROADMAP R2, R4).  The skewed input's overflow flag is the
+body's, so its cases call ``distributed_sort_local``; the guarded
+``distributed_sort`` on the same keys retries at twice the factor and is
+held against the reference body there.  The guard's collective verdict
+rides the same launch: NaN-laced keys (ROADMAP R10) and an ``exchange``
+fault make every rank raise.  The reference's two combines give the same
 padded buckets (its own ``tests/test_distributed.py`` holds them equal),
 so its body runs once per dtype, ``"onepass"`` for int32 and
 ``"tournament"`` for float32, and both of the port's combines are held
@@ -29,6 +34,7 @@ import pytest
 import torch
 
 from repro.core import distributed as RD
+from repro.runtime import faults as RF
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:  # the spawned ranks import chip_smoke by name
@@ -70,13 +76,36 @@ SORT_CASES = [(data, local_sort, combine) for data in ("int32_imax", "int32_skew
               for local_sort in ("core", "kernel") for combine in ("onepass", "tournament")]
 
 
+def _nan_laced(rng):
+    """R10's inputs: sorted float32 keys with NaNs laced in (the reference's
+    ``nan_lace``, so the same positions as a ``nan`` fault's)."""
+    a = np.sort(rng.standard_normal(N // 2).astype(np.float32))
+    b = np.sort(rng.standard_normal(N // 2).astype(np.float32))
+    x = (rng.standard_normal(N) * 100).astype(np.float32)
+    return [RF.nan_lace(t, f"r10:{i}") for i, t in enumerate((a, b, x))]
+
+
 def _cases(inputs):
     cases = []
     for data, local_sort, combine in SORT_CASES:
         x, cf = inputs[data]
-        cases.append({"name": f"{data}_{local_sort}_{combine}", "fn": "distributed_sort", "p": WORLD,
+        # the skewed keys overflow at SMALL_CF: the body's flag, not the guard's retry
+        fn = "distributed_sort_local" if data == "int32_skew" else "distributed_sort"
+        cases.append({"name": f"{data}_{local_sort}_{combine}", "fn": fn, "p": WORLD,
                       "args": [torch.from_numpy(x)], "shard": [1],
                       "kwargs": {"capacity_factor": cf, "local_sort": local_sort, "combine": combine}})
+    skew, cf = inputs["int32_skew"]
+    cases.append({"name": "guarded_skew", "fn": "distributed_sort", "p": WORLD, "args": [torch.from_numpy(skew)],
+                  "shard": [1], "kwargs": {"capacity_factor": cf}})
+    a, b, x = (torch.from_numpy(t) for t in inputs["nan"])
+    cases.append({"name": "nan_merge", "fn": "distributed_merge", "p": WORLD, "args": [a, b], "shard": [1, 1],
+                  "kwargs": {}})
+    cases.append({"name": "nan_sort", "fn": "distributed_sort", "p": WORLD, "args": [x], "shard": [1],
+                  "kwargs": {"local_sort": "kernel"}})
+    clean = torch.from_numpy(inputs["float32"][0])
+    cases.append({"name": "exchange_fault", "fn": "distributed_merge", "p": WORLD,
+                  "args": [torch.sort(clean[: N // 2]).values, torch.sort(clean[N // 2:]).values], "shard": [1, 1],
+                  "kwargs": {}, "plan": "exchange:distributed_merge:0:window"})
     for data in ("int32_imax", "float32"):
         x, cf = inputs[data]
         cases.append({"name": f"local_{data}", "fn": "distributed_sort_local", "p": WORLD,
@@ -91,10 +120,13 @@ def _cases(inputs):
 @pytest.fixture(scope="module")
 def runs():
     inputs = _inputs(np.random.default_rng(2025))
+    inputs["nan"] = _nan_laced(np.random.default_rng(10))
     cases = _cases(inputs)
     with tempfile.TemporaryDirectory() as tmp:
         ctx, out_dir = chip_smoke.start_dist_cases(cases, WORLD, tmp)
-        refs = {data: _ref(x, cf, REF_COMBINE[data]) for data, (x, cf) in inputs.items()}
+        refs = {data: _ref(*inputs[data], REF_COMBINE[data]) for data in REF_COMBINE}
+        skew, cf = inputs["int32_skew"]
+        refs["int32_skew_2x"] = _ref(skew, 2 * cf, "onepass")
         got = chip_smoke.dist_case_results(ctx, out_dir, cases, timeout=300)
     return got, refs
 
@@ -135,6 +167,27 @@ def test_skewed_keys_overflow_on_every_rank(runs):
     got, refs = runs
     assert bool(refs["int32_skew"][2].all())
     assert all(bool(res["out"][2]) for res in got["int32_skew_core_onepass"])
+
+
+def test_guarded_sort_retries_at_twice_the_capacity(runs):
+    """The skewed keys overflow the ``sample`` attempt; ``capacity-2x`` is
+    the reference body at twice the factor, or, where that overflows too,
+    every rank raises."""
+    got, refs = runs
+    if bool(refs["int32_skew_2x"][2].all()):
+        assert all(res.get("error", "").startswith("VerificationError") for res in got["guarded_skew"])
+    else:
+        _check_rank_outputs(got["guarded_skew"], refs["int32_skew_2x"])
+        assert got["guarded_skew"][0]["out"][0].shape[0] == 2 * refs["int32_skew"][0].shape[1]
+
+
+@pytest.mark.parametrize("name", ["nan_merge", "nan_sort", "exchange_fault"])
+def test_guard_raises_on_every_rank(runs, name):
+    """NaN-laced keys (R10) and a corrupted window exchange: the collective
+    verdict makes every rank raise ``VerificationError``, none hangs."""
+    got, _ = runs
+    assert len(got[name]) == WORLD
+    assert all(res.get("error", "").startswith("VerificationError") for res in got[name]), got[name]
 
 
 @pytest.mark.parametrize("name,match", [("uneven", "equal nonempty shards"), ("bad_combine", "combine must be")])

@@ -34,6 +34,9 @@ TRAIN_MODULES = {
 }
 # the distributed slice's modules
 DIST_MODULES = {"repro_torch.core.distributed", "repro_torch.launch.dsort"}
+# the runtime and telemetry slice's modules
+RUNTIME_MODULES = {"repro_torch.runtime.resilience", "repro_torch.runtime.faults", "repro_torch.telemetry.export",
+                   "repro_torch.telemetry.__main__", "repro_torch.telemetry.smoke"}
 
 
 def _forbidden(module: str) -> bool:
@@ -49,6 +52,7 @@ def test_importing_the_port_loads_no_jax():
     assert int(count) >= 50  # every module was walked
     assert TRAIN_MODULES <= set(names.split(","))
     assert DIST_MODULES <= set(names.split(","))
+    assert RUNTIME_MODULES <= set(names.split(","))
     assert bad == "[]"
 
 
