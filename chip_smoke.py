@@ -123,7 +123,18 @@ Phases (any failure raises, and the script exits non-zero):
     tinyllama-1.1b served under an injected decode fault, its trace
     replayed byte-identically; the trace smoke and its ``--check``; its
     numbers on a line of their own;
-13. the ``kernels`` line, the card line and the result line.
+13. VLM and audio (:func:`phase_vlm_audio`): paligemma-3b at full width
+    prefilled on a (1, 256) prefix and (1, 8192) tokens (8448 positions,
+    blockwise attention under the prefix mask), 16 tokens sampled on S1
+    and K4, prefill against stepping, trained 3 steps; whisper-large-v3 at
+    full width (32 + 32 layers) prefilled on (4, 1500) frames, its
+    ``enc_kv`` against ``encoder_forward``, 32 sampled steps with
+    cross-attention, prefill against stepping, trained 3 steps at all 64
+    layers; S1 and K4 on a sampled row of each vocab against their plain
+    versions; the bfloat16 gelu against the CPU; both prefills traced by
+    kind; the reduced configs against the CPU; its numbers on a line of
+    their own;
+14. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -1988,12 +1999,31 @@ ATTN_PROMPT, ATTN_NEW, ATTN_TRAIN_SEQ, ATTN_STEPS = 16384, 16, 4096, 3  # hymba:
 DENSE_PROMPT = 4096  # tinyllama: the dense _sdpa path
 
 
+def modal_inputs(cfg, batch: int, gen, device: str) -> dict:
+    """A VLM's ``prefix_emb (batch, P, d)`` or an audio model's ``frames
+    (batch, S_enc, d)``: normal draws from ``gen`` in the model's dtype, as
+    the reference's input specs give them; ``{}`` for the other families."""
+    import torch
+
+    from repro_torch.models.transformer import _dtype
+
+    if cfg.num_prefix_tokens:
+        name, n = "prefix_emb", cfg.num_prefix_tokens
+    elif cfg.is_encoder_decoder:
+        name, n = "frames", cfg.encoder_seq
+    else:
+        return {}
+    return {name: torch.randn((batch, n, cfg.d_model), generator=gen, device=device).to(_dtype(cfg))}
+
+
 def reduced_against_cpu(device: str, arch: str, prompt: int = 37) -> None:
     """The reduced config (float32, fused scan) on ``device`` against the same
-    weights on the CPU: prefill logits and every cache, then 4 decode steps
-    with greedy tokens identical (TF32 off, as :func:`phase_reference`).
-    Float32 sums run in another order on the card, and K9's exp is
-    ex2.approx: 1e-4 covers both."""
+    weights on the CPU: prefill logits and every cache (an audio model's
+    ``enc_kv`` too), then 4 decode steps with greedy tokens identical (TF32
+    off, as :func:`phase_reference`).  A VLM's prefix or an audio model's
+    frames (:func:`modal_inputs`) go with the prompt.  Float32 sums run in
+    another order on the card, and K9's exp is ex2.approx: 1e-4 covers
+    both."""
     import dataclasses
 
     import numpy as np
@@ -2008,29 +2038,35 @@ def reduced_against_cpu(device: str, arch: str, prompt: int = 37) -> None:
     cpu = init_params(cfg, seed=0, device="cpu")
     dev = _to(cpu, device)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt)))
-    cache_len = prompt + 4
-    lc, cc, _ = forward_prefill(cfg, cpu, {"tokens": tokens}, cache_len)
-    lg, cg, _ = forward_prefill(cfg, dev, {"tokens": tokens.to(device)}, cache_len)
+    extra = modal_inputs(cfg, 2, torch.Generator().manual_seed(0), "cpu")
+    start = cfg.num_prefix_tokens + prompt  # a VLM's positions count its prefix
+    cache_len = start + 4
+    lc, cc, ec = forward_prefill(cfg, cpu, {"tokens": tokens, **extra}, cache_len)
+    lg, cg, eg = forward_prefill(cfg, dev, {"tokens": tokens.to(device), **_to(extra, device)}, cache_len)
     check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} prefill logits differ: "
           f"{float((lg.cpu() - lc).abs().max())}")
     for sub, names in cc.items():
         for name, t in names.items():
             check(torch.allclose(cg[sub][name].cpu(), t, atol=1e-4, rtol=1e-4), f"reduced {arch} prefill {sub}/{name} differs")
+    for name, g, c in zip(("ek", "ev"), eg or (), ec or ()):
+        check(torch.allclose(g.cpu(), c, atol=1e-4, rtol=1e-4), f"reduced {arch} enc_kv {name} differs")
     tok = lc.argmax(-1, keepdim=True)
     for t in range(4):
-        pos = torch.full((2,), prompt + t)
-        lc, _ = forward_decode(cfg, cpu, cc, tok, pos)
-        lg, _ = forward_decode(cfg, dev, cg, tok.to(device), pos.to(device))
+        pos = torch.full((2,), start + t)
+        lc, _ = forward_decode(cfg, cpu, cc, tok, pos, enc_kv=ec)
+        lg, _ = forward_decode(cfg, dev, cg, tok.to(device), pos.to(device), enc_kv=eg)
         check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4), f"reduced {arch} decode logits differ at step {t}: "
               f"{float((lg.cpu() - lc).abs().max())}")
         check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"reduced {arch} greedy tokens differ at step {t}")
         tok = lc.argmax(-1, keepdim=True)
-    print(f"reference: reduced {arch} ({cfg.num_layers} layers, window {cfg.sliding_window}, prompt {prompt}, fused "
-          f"scan) on {device} matches the CPU within 1e-4: prefill logits and every cache, then 4 decode steps; greedy "
-          "tokens identical")
+    print(f"reference: reduced {arch} ({cfg.num_layers} layers, window {cfg.sliding_window}, prompt {prompt}"
+          + (f" after a prefix of {cfg.num_prefix_tokens}" if cfg.num_prefix_tokens else "")
+          + (f" over {cfg.encoder_seq} frames" if cfg.is_encoder_decoder else "")
+          + f", fused scan) on {device} matches the CPU within 1e-4: prefill logits and every cache"
+          + (", enc_kv" if ec is not None else "") + ", then 4 decode steps; greedy tokens identical")
 
 
-def _prefill_against_stepping(cfg, params, prefill, decode, tokens, device: str) -> str:
+def _prefill_against_stepping(cfg, params, prefill, decode, tokens, device: str, extra=None, enc_kv=None) -> str:
     """Layer 0's caches after one prefill of ``tokens (1, n)`` against n
     decode steps from zero caches, within ``STEP_RTOL`` of max (phase 7's
     tolerance); a bfloat16 cache also within one bfloat16 ulp of its
@@ -2039,24 +2075,34 @@ def _prefill_against_stepping(cfg, params, prefill, decode, tokens, device: str)
     run in another order, so a bfloat16 projection may round the other
     way (one ulp of the element), and the rotary embedding carries that
     into the element's pair (norm-preserving: within one ulp of the
-    largest).  Returns a line that reports it."""
+    largest).  ``extra`` goes with both prefills: a VLM's prefix (the
+    steps then start from a prefill of the prefix alone, and the text
+    positions P ... P + n - 1 are compared) or an audio model's frames
+    (the steps read ``enc_kv``).  Returns a line that reports it."""
     import torch
 
     from repro_torch.models import init_caches
 
+    extra = extra or {}
     n = tokens.shape[1]
-    _, pre = prefill(params, {"tokens": tokens}, n)
-    stepped = init_caches(cfg, 1, n, device=device)
+    p = extra["prefix_emb"].shape[1] if "prefix_emb" in extra else 0
+    _, pre = prefill(params, {"tokens": tokens, **extra}, p + n)
+    if p:
+        _, stepped = prefill(params, {"tokens": tokens[:, :0], **extra}, p + n)
+    else:
+        stepped = init_caches(cfg, 1, n, device=device)
     for t in range(n):
-        decode(params, stepped, tokens[:, t:t + 1], torch.full((1,), t, device=device))
+        decode(params, stepped, tokens[:, t:t + 1], torch.full((1,), p + t, device=device),
+               *([] if enc_kv is None else [enc_kv]))
     parts = []
     for name in pre["sub0"]:
-        got, want = pre["sub0"][name][0], stepped["sub0"][name][0]
+        got, want = pre["sub0"][name][0][:, p:], stepped["sub0"][name][0][:, p:]
         top = float(want.float().abs().max())
         ulp = math.ldexp(1.0, math.frexp(top)[1] - 8) if want.dtype == torch.bfloat16 and top > 0 else 0.0
         err = scan_err(got, want, f"{cfg.name} prefill against stepping, layer 0 {name}", STEP_RTOL, ulp)
         parts.append(f"{name} {err:.3g} ({err / max(float(want.float().abs().max()), 1e-30):.3g} of max)")
-    return f"layer 0 after a prefill of {n} tokens against {n} decode steps: max abs err " + ", ".join(parts)
+    return (f"layer 0 after a prefill of {n} tokens" + (f" after a prefix of {p}" if p else "")
+            + f" against {n} decode steps: max abs err " + ", ".join(parts))
 
 
 def phase_attention(device: str = "cuda", reduce: bool = False, prompt: int = ATTN_PROMPT, new_tokens: int = ATTN_NEW,
@@ -2229,7 +2275,8 @@ def phase_attention(device: str = "cuda", reduce: bool = False, prompt: int = AT
               f"of the {prefill_s * 1e3:.1f} ms prefill (CUDA events)")
         from repro_torch.launch.profile import profile_prefill, report_prefill
 
-        report_prefill(f"hymba prefill (1, {prompt}) traced", profile_prefill(prefill, params, tokens, cache_len))
+        report_prefill(f"hymba prefill (1, {prompt}) traced",
+                       profile_prefill(prefill, params, {"tokens": tokens}, cache_len))
     print(f"attention: K9 on hymba's layer 0 inputs {k9['shape']} against its plain version: max abs err {k9_err:.3g}")
     del layer0, args0, kw0, caches, logits
     print("attention: hymba " + _prefill_against_stepping(cfg, params, prefill, decode, tokens[:, :step_prompt], device))
@@ -2798,7 +2845,7 @@ def phase_moe(device: str = "cuda", reduce: bool = False, card: str = "cpu", pro
         from repro_torch.launch.profile import profile_prefill, report_prefill
 
         report_prefill(f"moe: moonshot prefill (1, {prompt}) traced ({card})",
-                       profile_prefill(prefill, params, tokens, cache_len))
+                       profile_prefill(prefill, params, {"tokens": tokens}, cache_len))
     print("moe: moonshot " + _prefill_against_stepping(cfg, params, prefill, decode, tokens[:, :step_prompt], device))
     del params
     free()
@@ -3809,6 +3856,393 @@ def phase_runtime(device: str = "cuda", card: str = "cpu", log2n: int = 24, rows
             "serving": {"completed": rep.completed, "retries": rep.retries, "ticks": rep.ticks, "trace_bytes": len(raw)}}
 
 
+VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-large-v3"
+VLM_TEXT, VLM_NEW, VLM_TRAIN_TEXT = 8192, 16, 1792  # 256 + 8192 = 8448 positions: past FULL_ATTENTION_THRESHOLD
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_CACHE, AUDIO_NEW = 4, 4, 448, 32  # 448: the real model's decoder limit
+AUDIO_TRAIN = (2, 448)  # (B, decoder tokens) over the 1500 frames of each row
+MODAL_STEPS = 3
+
+
+def sampler_row(logits, what: str, on_card: bool) -> dict:
+    """The kernel sampler's sort of one logit row ``(1, V)``: S1 and every
+    K4 round against their plain versions on the same inputs, bit for bit,
+    and the last round's order against ``ops.topk_batched``'s 40
+    candidates.  On the card also the CUDA-event ms of S1 and the sum over
+    the K4 rounds, their plain versions' and the library's (a stable
+    ``torch.sort`` of S1's chunk view with the gather of the indices, and
+    of each round's pair view), beside their byte bounds."""
+    import torch
+
+    from repro_torch.core.batched import _pad_rows_pow2
+    from repro_torch.core.merge_path import flip_desc, max_sentinel, total_order_keys
+    from repro_torch.kernels import merge_path as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import _narrow_chunk, _sort_tile
+
+    n = logits.shape[1]
+    tile, leaf = _sort_tile(n, None, None)
+    keys = total_order_keys(flip_desc(logits))
+    kp = _pad_rows_pow2(keys, max_sentinel(keys.dtype)).reshape(-1)
+    vp = _pad_rows_pow2(torch.arange(n, dtype=torch.int32, device=logits.device)[None], 0).reshape(-1)
+    m = kp.shape[0]
+    chunk, width = _narrow_chunk(m, tile, kp.dtype)
+    ref = km.sort_tiles_kv_ref(kp, vp, chunk)
+    err = max(bit_err(g, r, f"S1 on {what}'s sampled row, chunk {chunk}") for g, r in
+              zip(km.sort_tiles_kv(kp, vp, chunk), ref))
+    kf = torch.cat([ref[0], torch.full((tile,), max_sentinel(kp.dtype), dtype=kp.dtype, device=kp.device)])
+    vf = torch.cat([ref[1], torch.zeros((tile,), dtype=torch.int32, device=kp.device)])
+    rounds = []
+    while width < m:
+        ref = km.sort_round_kv_ref(kf, vf, width, tile=tile)
+        for g, r in zip(km.sort_round_kv(kf, vf, width, tile=tile, leaf=leaf), ref):
+            err = max(err, bit_err(g, r, f"K4 on {what}'s sampled row, width {width}"))
+        rounds.append((kf, vf, width))
+        kf, vf = ref
+        width *= 2
+    _, idx = ops.topk_batched(logits, 40)
+    check(torch.equal(idx[0], vf[:40]), f"the rounds' order differs from ops.topk_batched on {what}'s sampled row")
+    key_bytes = kp.element_size()
+    s1_bound = tiles_bound(m, key_bytes, values=True)
+    k4_bound = sum(round_bound(m, key_bytes)["ms"] for _ in rounds)
+    out = {"n": n, "m": m, "chunk": chunk, "rounds": len(rounds), "max_abs_err": err,
+           "s1": {"ms": None, "plain_ms": None, "library_ms": None, "bound_ms": s1_bound["ms"], "bound_by": s1_bound["by"]},
+           "k4": {"ms": None, "plain_ms": None, "library_ms": None, "bound_ms": k4_bound,
+                  "bound_by": round_bound(m, key_bytes)["by"]}}
+    if on_card:
+        out["s1"].update(ms=time_ms(lambda: km.sort_tiles_kv(kp, vp, chunk)),
+                         plain_ms=time_ms(lambda: km.sort_tiles_kv_ref(kp, vp, chunk)),
+                         library_ms=time_ms(lambda: torch.gather(vp.view(-1, chunk), 1, torch.sort(
+                             kp.view(-1, chunk), dim=1, stable=True).indices)))
+        out["k4"].update(
+            ms=sum(time_ms(lambda: km.sort_round_kv(k, v, w, tile=tile, leaf=leaf)) for k, v, w in rounds),
+            plain_ms=sum(time_ms(lambda: km.sort_round_kv_ref(k, v, w, tile=tile)) for k, v, w in rounds),
+            library_ms=sum(time_ms(lambda: torch.sort(k[:m].view(-1, 2 * w), dim=1, stable=True)) for k, _, w in rounds))
+    return out
+
+
+def gelu_reading(mlp: dict, gen, device: str, n: int = 1 << 20, rows: int = 64) -> dict:
+    """ROADMAP R11 on the card: the bfloat16 gelu (``layers._act("gelu")``)
+    of ``n`` draws of 3 N(0, 1), and one MLP layer (``mlp``, the model's
+    own weights, on ``rows`` normal rows), on ``device`` against the same
+    inputs on the CPU.  CUDA's tanh is not the CPU's, so some elements
+    round the other way: the share that differs is read, and every
+    difference is held within one bfloat16 ulp of the largest element."""
+    import torch
+
+    from repro_torch.models.layers import _act, mlp_apply
+
+    mlp = {k: v.bfloat16() for k, v in mlp.items()}  # a reduced config's float32 weights too
+
+    def held(got, want, what):
+        got, want = got.float().cpu(), want.float()
+        top = float(want.abs().max())
+        ulp = math.ldexp(1.0, math.frexp(top)[1] - 8)
+        diff = float((got - want).abs().max())
+        check(diff <= ulp, f"{what} on {device} differs from the CPU by {diff:.3g}, more than one bfloat16 ulp "
+                           f"({ulp:.3g}) of its largest element {top:.3g}")
+        return {"share": float((got != want).float().mean()), "max_abs_err": diff, "ulp_of_max": ulp}
+
+    x = (torch.randn(n, generator=gen, device=device) * 3).bfloat16()
+    act = held(_act("gelu", None, x), _act("gelu", None, x.cpu()), "the bfloat16 gelu")
+    h = torch.randn((rows, mlp["wi"].shape[0]), generator=gen, device=device).bfloat16()
+    layer = held(mlp_apply(mlp, h, "gelu"), mlp_apply({k: v.cpu() for k, v in mlp.items()}, h.cpu(), "gelu"),
+                 "the bfloat16 gelu MLP layer")
+    return {"act": act, "layer": layer, "n": n, "rows": rows}
+
+
+def phase_vlm_audio(device: str = "cuda", reduce: bool = False, card: str = "cpu", text: int = VLM_TEXT,
+                    new_tokens: int = VLM_NEW, step_prompt: int = 32, vlm_train_text: int = VLM_TRAIN_TEXT,
+                    audio_batch: int = AUDIO_BATCH, audio_prompt: int = AUDIO_PROMPT, audio_cache: int = AUDIO_CACHE,
+                    audio_new: int = AUDIO_NEW, audio_train=AUDIO_TRAIN, steps: int = MODAL_STEPS, gelu_n: int = 1 << 20,
+                    seed: int = 13) -> dict:
+    """The VLM and audio families: paligemma-3b and whisper-large-v3.
+
+    1. paligemma-3b at full width (random weights from seed 0, bfloat16),
+       driven once with every count at 0: ``make_prefill_step`` of a
+       ``(1, P)`` prefix (``prefix_emb``, drawn from a seed) and ``(1,
+       text)`` tokens with ``cache_len = P + text + new_tokens`` (8448
+       positions at full size: past ``FULL_ATTENTION_THRESHOLD``, so every
+       layer runs the blockwise attention under the prefix mask), then
+       ``new_tokens`` tokens sampled with top-k 40 through
+       ``make_decode_step`` at positions ``P + text + i`` (S1 once and K4's
+       wide rounds per token: vocab 257216 pads to 262144, 9 rounds).  S1
+       and every K4 round on the last sampled row against their plain
+       versions (:func:`sampler_row`); the bfloat16 gelu against the CPU
+       (:func:`gelu_reading`); the prefill traced by kind; layer 0's k and
+       v at the text positions after a prefill against stepping from a
+       prefill of the prefix alone.  Then ``steps`` train steps of a ``(1,
+       P)`` prefix and ``(1, vlm_train_text)`` tokens, labels over the
+       text: finite losses, every parameter moved, ms a step and peak
+       memory.
+    2. whisper-large-v3 at full width (32 encoder and 32 decoder layers):
+       ``forward_prefill`` of ``(audio_batch, 1500)`` frames and
+       ``(audio_batch, audio_prompt)`` tokens with ``cache_len =
+       audio_cache``, its ``enc_kv`` ``(32, B, 1500, 20, 64)`` twice; then
+       ``audio_new`` sampled steps through ``make_decode_step(...,
+       enc_kv)`` (S1 once and 7 K4 rounds per sampled step of the batch:
+       51866 pads to 65536).  ``encoder_forward`` alone bit-identical to
+       the prefill's ``enc_kv``; S1 and K4 on one sampled row; layer 0's
+       self-attention k and v against stepping; the prefill traced by
+       kind; ``steps`` train steps of ``audio_train`` tokens over 1500
+       frames a row at all 64 layers.
+    3. The reduced paligemma and whisper on this device against the CPU.
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the configs are the reduced ones, the wrappers run their plain
+    versions, nothing is launched, timed or traced, and every check still
+    runs.  Returns the phase's numbers.
+    """
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.kernels.tune import pick
+    from repro_torch.models import encoder_forward, forward_prefill, init_params
+    from repro_torch.models.attention import FULL_ATTENTION_THRESHOLD
+    from repro_torch.models.transformer import _dtype
+    from repro_torch.serving import topk_sample
+    from repro_torch.train import init_train_state, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train.smoke import leaf_report
+    from repro_torch.train.steps import _cast
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def config(arch):
+        base = get_config(arch)
+        return base.reduced() if reduce else base
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def want(**kw):
+        out = dict.fromkeys((fn.__name__ for fn in WRAPPERS), 0)
+        if on_card:
+            out.update(kw)
+        return out
+
+    def peak_gb():
+        return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if on_card else "not measured"
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def weights(cfg):
+        t0 = time.perf_counter()
+        params = _cast(init_params(cfg, seed=0, device=device), _dtype(cfg))  # once, as the engine does
+        sync()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"vlm_audio: {cfg.name} ({cfg.num_layers} layers" + (f" + {cfg.encoder_layers} encoder layers"
+              if cfg.encoder_layers else "") + f", d={cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of "
+              f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), {cfg.n_params() / 1e9:.3f} "
+              f"B parameters, {n_bytes / 1e9:.3f} GB of weights from seed 0 in {time.perf_counter() - t0:.2f} s")
+        return params
+
+    def serve(cfg, params, batch, cache_len, start, n_new, prefill, decode):
+        """Prefill ``batch`` (no launch), then sample ``n_new`` steps from
+        ``start`` (S1 once and K4's wide rounds each), with every count at
+        0 before: ``(launches, prefill s, decode s, ids, logits, caches,
+        enc_kv, K4 rounds a step)``."""
+        free()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, caches, enc_kv = prefill(params, batch, cache_len)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = counts()
+        bsz = logits.shape[0]
+        sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(n_new - 1):
+            logits, caches = decode(params, caches, sampled[-1][:, None], torch.full((bsz,), start + i, device=device),
+                                    enc_kv)
+            sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+        sync()
+        decode_s = time.perf_counter() - t0
+        launches = counts()
+        ids = torch.stack(sampled)
+        check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{cfg.name} sampled ids {ids.tolist()}")
+        check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name} decode logits not finite")
+        for name, t in caches["sub0"].items():
+            check(tuple(t.shape[1:3]) == (bsz, cache_len) and bool(torch.isfinite(t.float()).all()),
+                  f"{cfg.name} cache {name} {tuple(t.shape)} not finite or not ({bsz}, {cache_len})")
+        k4_rounds = wide_rounds(cfg.vocab_size, pick(cfg.vocab_size)[0])
+        check(prefill_launches == want(), f"{cfg.name} prefill launched {prefill_launches}")
+        expect = want(sort_round_kv=n_new * k4_rounds, sort_tiles_kv=n_new)
+        check(launches == expect, f"{cfg.name} serving path launched {launches}, want {expect}")
+        return launches, prefill_s, decode_s, ids, logits, caches, enc_kv, k4_rounds
+
+    def train(cfg, batches, what):
+        free()
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, tcfg, seed=0, device=device)
+        state["step"].fill_(1)
+        sync()
+        n_params = sum(t.numel() for t in _leaves(state["params"]))
+        init_s = time.perf_counter() - t0
+        before = _fingerprints(state["params"])
+        step_fn = make_train_step(cfg, tcfg)
+        losses, step_ms = [], []
+        reset_launches()
+        for i, batch in enumerate(batches):
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            state, m = step_fn(state, batch)
+            if on_card:
+                ev[1].record()
+                ev[1].synchronize()
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+                  f"{cfg.name} step {i + 1}: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+        check(counts() == want(), f"{cfg.name} training launched {counts()}")
+        after = _fingerprints(state["params"])
+        still = [name for (name, _, _), a, b in zip(leaf_report(state["params"]), before, after) if torch.equal(a, b)]
+        check(not still, f"{cfg.name} parameters did not move: {still}")
+        ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None
+        peak = peak_gb()
+        print(f"vlm_audio: {cfg.name} {len(batches)} train steps of {what} at all {cfg.num_layers}"
+              + (f" + {cfg.encoder_layers}" if cfg.encoder_layers else "") + f" layers ({n_params / 1e9:.3f} B "
+              f"parameters, float32 masters and moments made in {init_s:.2f} s): losses {[round(x, 5) for x in losses]}"
+              + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}, {ms:.3f} ms per step after the first; "
+                 f"peak memory {peak}" if on_card else "; times and peak memory not measured (CPU)") + "; every "
+              "parameter moved; no kernel launched")
+        if on_card:  # more steps traced: device busy and idle share, time by kind and by autograd node
+            from repro_torch.launch.profile import profile_train_step, report_train
+
+            print(f"vlm_audio: {cfg.name} train step of {what} traced ({card}):")
+            report_train(profile_train_step(cfg, tcfg, state, batches[0]))
+        del state
+        free()
+        return {"ms": ms, "peak": peak, "losses": losses}
+
+    out = {"card": card}
+
+    # 1. paligemma: a prefix of patch embeddings, prefilled past the threshold, sampled, trained
+    cfg = config(VLM_ARCH)
+    params = weights(cfg)
+    p = cfg.num_prefix_tokens
+    prefix = modal_inputs(cfg, 1, gen, device)
+    tokens = torch.randint(1, cfg.vocab_size, (1, text), generator=gen, device=device)
+    batch = {"tokens": tokens, **prefix}
+    cache_len = p + text + new_tokens
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def vlm_prefill(params, batch, cache_len):
+        return prefill(params, batch, cache_len) + (None,)
+
+    launches, prefill_s, decode_s, ids, logits, caches, _, rounds = serve(
+        cfg, params, batch, cache_len, p + text, new_tokens, vlm_prefill, decode)
+    blockwise = p + text > FULL_ATTENTION_THRESHOLD
+    print(f"vlm_audio: paligemma prefill of a (1, {p}) prefix and (1, {text}) tokens, {p + text} positions "
+          f"({'blockwise' if blockwise else 'dense'} attention under the prefix mask, chunk {cfg.attn_chunk}), "
+          f"cache_len {cache_len}, in {prefill_s * 1e3:.1f} ms (the first call; no kernel launched); {new_tokens} "
+          f"tokens sampled (top-k 40), {new_tokens - 1} decode steps in {decode_s * 1e3:.1f} ms "
+          f"({decode_s * 1e3 / max(1, new_tokens - 1):.2f} ms per step with its sample); K4 launched "
+          f"{launches['sort_round_kv']} times ({rounds} wide rounds per token), S1 {launches['sort_tiles_kv']}; peak "
+          f"memory {peak_gb()}; ids {ids[:, 0].tolist()} ({card})")
+    row = sampler_row(logits, "paligemma", on_card)
+    gelu = gelu_reading({k: v[0] for k, v in params["layers"]["mlp"].items()}, gen, device, n=gelu_n)
+    print(f"vlm_audio: R11, the bfloat16 gelu on {device} against the CPU: {gelu['act']['share']:.6f} of {gelu_n} "
+          f"elements differ (max abs err {gelu['act']['max_abs_err']:.3g}, one ulp of the largest "
+          f"{gelu['act']['ulp_of_max']:.3g}); paligemma's layer 0 MLP on ({gelu['rows']}, {cfg.d_model}) rows: "
+          f"{gelu['layer']['share']:.6f} differ, max abs err {gelu['layer']['max_abs_err']:.3g} (one ulp of the "
+          f"largest {gelu['layer']['ulp_of_max']:.3g})")
+    out["paligemma"] = {"prefill_ms": prefill_s * 1e3, "decode_step_ms": decode_s * 1e3 / max(1, new_tokens - 1),
+                        "positions": p + text, "blockwise": blockwise, "sampled": new_tokens,
+                        "k4_launches": launches["sort_round_kv"], "s1_launches": launches["sort_tiles_kv"],
+                        "k4_per_token": rounds, "row": row, "gelu": gelu}
+    if on_card:
+        from repro_torch.launch.profile import profile_prefill, report_prefill
+
+        report_prefill(f"vlm_audio: paligemma prefill ({p} + {text}) traced ({card})",
+                       profile_prefill(prefill, params, batch, cache_len))
+    del caches, logits
+    print("vlm_audio: paligemma " + _prefill_against_stepping(cfg, params, prefill, decode, tokens[:, :step_prompt],
+                                                               device, extra=prefix))
+    del params
+    free()
+    pipe = SyntheticLMPipeline(cfg, 1, vlm_train_text, PipelineConfig(seed=0))
+    batches = [{**{k: torch.as_tensor(v, device=device) for k, v in pipe.batch_at(i).items()},
+                **modal_inputs(cfg, 1, gen, device)} for i in range(1, steps + 1)]
+    out["paligemma"]["train"] = train(cfg, batches, f"a (1, {p}) prefix and (1, {vlm_train_text}) tokens")
+    del batches
+
+    # 2. whisper: the encoder over 1500 frames, cross-attention in every decoder step, trained at all 64 layers
+    acfg = config(AUDIO_ARCH)
+    params = weights(acfg)
+    frames = modal_inputs(acfg, audio_batch, gen, device)
+    prompts = torch.randint(1, acfg.vocab_size, (audio_batch, audio_prompt), generator=gen, device=device)
+    aprefill, adecode = make_prefill_step(acfg), make_decode_step(acfg)
+    launches, prefill_s, decode_s, ids, logits, caches, enc_kv, rounds = serve(
+        acfg, params, {"tokens": prompts, **frames}, audio_cache, audio_prompt, audio_new,
+        lambda p_, b, c: forward_prefill(acfg, p_, b, c), adecode)
+    kv_shape = (acfg.num_layers, audio_batch, acfg.encoder_seq, acfg.num_kv_heads, acfg.resolved_head_dim)
+    check(all(tuple(t.shape) == kv_shape and bool(torch.isfinite(t.float()).all()) for t in enc_kv),
+          f"whisper enc_kv {[tuple(t.shape) for t in enc_kv]}, want {kv_shape}, finite")
+    alone = encoder_forward(acfg, params, frames["frames"])
+    check(all(torch.equal(a, b) for a, b in zip(alone, enc_kv)), "encoder_forward differs from the prefill's enc_kv")
+    kv_gb = sum(t.numel() * t.element_size() for t in enc_kv) / 1e9
+    print(f"vlm_audio: whisper forward_prefill of ({audio_batch}, {acfg.encoder_seq}) frames and ({audio_batch}, "
+          f"{audio_prompt}) tokens, cache_len {audio_cache}, in {prefill_s * 1e3:.1f} ms (the first call; no kernel "
+          f"launched); enc_kv 2 x {kv_shape} ({kv_gb:.3f} GB), encoder_forward alone bit-identical; {audio_new} "
+          f"sampled steps of the batch (top-k 40), {audio_new - 1} decode steps with cross-attention in "
+          f"{decode_s * 1e3:.1f} ms ({decode_s * 1e3 / max(1, audio_new - 1):.2f} ms per step with its sample); K4 "
+          f"launched {launches['sort_round_kv']} times ({rounds} wide rounds per sampled step of {audio_batch} rows), "
+          f"S1 {launches['sort_tiles_kv']} (one per step); peak memory {peak_gb()}; first row's ids "
+          f"{ids[:, 0].tolist()} ({card})")
+    arow = sampler_row(logits[:1], "whisper", on_card)
+    out["whisper"] = {"prefill_ms": prefill_s * 1e3, "decode_step_ms": decode_s * 1e3 / max(1, audio_new - 1),
+                      "batch": audio_batch, "sampled_steps": audio_new, "k4_launches": launches["sort_round_kv"],
+                      "s1_launches": launches["sort_tiles_kv"], "k4_per_step": rounds, "enc_kv_gb": kv_gb,
+                      "row": arow}
+    if on_card:
+        from repro_torch.launch.profile import profile_prefill, report_prefill
+
+        report_prefill(f"vlm_audio: whisper prefill ({audio_batch}, {acfg.encoder_seq}) frames traced ({card})",
+                       profile_prefill(aprefill, params, {"tokens": prompts, **frames}, audio_cache))
+    del caches, logits, enc_kv, alone
+    one = {"frames": frames["frames"][:1]}
+    stokens = torch.randint(1, acfg.vocab_size, (1, step_prompt), generator=gen, device=device)
+    print("vlm_audio: whisper " + _prefill_against_stepping(acfg, params, aprefill, adecode, stokens, device,
+                                                             extra=one, enc_kv=encoder_forward(acfg, params,
+                                                                                               one["frames"])))
+    del params
+    free()
+    bsz, seq = audio_train
+    pipe = SyntheticLMPipeline(acfg, bsz, seq, PipelineConfig(seed=0))
+    batches = [{**{k: torch.as_tensor(v, device=device) for k, v in pipe.batch_at(i).items()},
+                **modal_inputs(acfg, bsz, gen, device)} for i in range(1, steps + 1)]
+    out["whisper"]["train"] = train(acfg, batches, f"({bsz}, {acfg.encoder_seq}) frames and ({bsz}, {seq}) tokens")
+    del batches
+
+    # 3. the reduced configs on this device against the CPU
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        reduced_against_cpu(device, arch)
+    for name in ("paligemma", "whisper"):
+        r = out[name]["row"]
+        print(f"vlm_audio: S1 and K4 on {name}'s sampled row ({r['n']} pads to {r['m']}; S1 at chunk {r['chunk']}, "
+              f"{r['rounds']} K4 rounds) bit-identical to their plain versions"
+              + ("" if not on_card else f"; S1 kernel_ms {r['s1']['ms']:.5f} plain_ms {r['s1']['plain_ms']:.5f} "
+                 f"library_ms {r['s1']['library_ms']:.5f} bound_ms {r['s1']['bound_ms']:.6f}; K4 rounds kernel_ms "
+                 f"{r['k4']['ms']:.5f} plain_ms {r['k4']['plain_ms']:.5f} library_ms {r['k4']['library_ms']:.5f} "
+                 f"bound_ms {r['k4']['bound_ms']:.6f} (CUDA events)"))
+    return out
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -3927,6 +4361,7 @@ def main() -> int:
     moe = phase_moe(card=card)
     distributed = phase_distributed(card=card)
     runtime = phase_runtime(card=card)
+    vlm_audio = phase_vlm_audio(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -3944,20 +4379,25 @@ def main() -> int:
                                    ("merge_batched_ragged", 721), ("merge_kv_batched_ragged", 749))]
     # S1 has no Pallas counterpart: it replaces the reference's narrow rounds in XLA
     kernels.append(dict(entry("sort_tiles", "sort_tiles.cu", 0, merge_sort["sort_tiles"]["launches"],
-                              merge_sort["sort_tiles"]), replaces="src/repro/kernels/ops.py:558"))
+                              merge_sort["sort_tiles"]), replaces="src/repro/kernels/ops.py:547"))
     kernels.append(dict(entry("sort_tiles_kv", "sort_tiles.cu", 0, serving["tiles_launches"],
                               dict(k4["tiles_kv"], max_abs_err=max(merge_sort["sort_tiles_kv"]["max_abs_err"],
                                                                    k4["tiles_kv"]["max_abs_err"]))),
-                        replaces="src/repro/kernels/ops.py:581"))
+                        replaces="src/repro/kernels/ops.py:576"))
     hymba = {key: {k: attention[key][k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "sfu_ms")}
              for key in ("k9", "k10")}
     kernels.append(dict(entry("ssm_scan", "ssm_scan.cu", 79, ssm["launches"], ssm),
                         replaces="src/repro/kernels/ssm_scan.py:79", hymba=hymba["k9"]))
     kernels.append(dict(entry("ssm_scan_bwd", "ssm_scan_bwd.cu", 157, train["launches"], train),
                         replaces="src/repro/kernels/ssm_scan.py:157", hymba=hymba["k10"]))
-    for k in kernels:  # S1 and K4 on moonshot's routing keys; S1, K3, K4 and K7 on the distributed sort
+    for k in kernels:  # S1 and K4 on moonshot's routing keys and on phase 13's sampled rows; S1, K3, K4 and K7 on
+        # the distributed sort
         if k["name"] in ("sort_round_kv", "sort_tiles_kv"):
             k["moe"] = moe[k["name"]]
+            part = "k4" if k["name"] == "sort_round_kv" else "s1"
+            k["vlm_audio"] = {m: {"launches": vlm_audio[m][f"{part}_launches"],
+                                  "max_abs_err": vlm_audio[m]["row"]["max_abs_err"], **vlm_audio[m]["row"][part]}
+                              for m in ("paligemma", "whisper")}
         if k["name"] in distributed:
             k["distributed"] = distributed[k["name"]]
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
@@ -3998,8 +4438,13 @@ def main() -> int:
           "sort_prepare of 2^21 keys (S1, K3 or K4) or tournament combine of its 8 received runs (K7) at the emulated "
           "P = 8; the times on rank 0's stages there: S1 one call on its 2^21 keys at chunk 512 (float32: their "
           "total-order keys and int32 indices), K3 and K4 sums over its 12 wide rounds, K7 the sum over the 3 "
-          "rounds of its int32 combine, library_ms as in the entries above")
+          "rounds of its int32 combine, library_ms as in the entries above; the \"vlm_audio\" object of sort_round_kv "
+          "and sort_tiles_kv holds their numbers on phase 13's last sampled row of paligemma-3b (1, 257216) and the "
+          "first of whisper-large-v3 (1, 51866), bfloat16 logits as int16 total-order keys with int32 indices: S1 one "
+          "call at its chunk, K4 the sums over its 9 or 7 wide rounds, library_ms as in the moe object, launches "
+          "those of phase 13's sampling runs (one S1 and 9 or 7 K4 per sampled step)")
     print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"vlm_audio": vlm_audio}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

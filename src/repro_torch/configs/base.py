@@ -5,7 +5,8 @@ field set and the two derived counts (``n_params``, ``n_active_params``)
 match the JAX package's ``repro.configs.base`` field for field, so a
 config built here describes the same model there.  ``reduced()`` returns
 a tiny same-family config for CPU tests (same code paths, small dims).
-``ShapeConfig``/``SHAPES`` (the reference's named batch shapes) and
+``ShapeConfig``/``SHAPES`` (the reference's named batch shapes),
+``shape_applicable`` (which of them an architecture runs) and
 ``TrainConfig`` (the optimizer and run knobs) are copies too.
 """
 
@@ -192,6 +193,13 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 )
 
 SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; reason string when skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch: 500k decode is quadratic-cost/HBM-infeasible (per spec, skipped)"
+    return True, ""
 
 
 @dataclasses.dataclass(frozen=True)

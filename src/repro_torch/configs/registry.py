@@ -1,18 +1,29 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the architectures the port can serve are registered (the dense,
-SSM, hybrid and MoE families); the VLM and audio families of the
-reference come with later slices (see ROADMAP.md).
+Every family of the reference is registered: dense, SSM, hybrid, MoE,
+VLM and audio.  nemotron-4-340b comes with the parallel slice (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import falcon_mamba_7b, gemma3_12b, hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b
+from . import (
+    falcon_mamba_7b,
+    gemma3_12b,
+    hymba_1_5b,
+    moonshot_v1_16b_a3b,
+    paligemma_3b,
+    phi35_moe_42b_a6_6b,
+    tinyllama_1_1b,
+    whisper_large_v3,
+    yi_6b,
+)
 from .base import ModelConfig
 
-_MODULES = (hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b)
+_MODULES = (hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b,
+            paligemma_3b, whisper_large_v3)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
@@ -25,6 +36,8 @@ ALIASES = {
     "yi": "yi-6b",
     "gemma3": "gemma3-12b",
     "falcon-mamba": "falcon-mamba-7b",
+    "paligemma": "paligemma-3b",
+    "whisper": "whisper-large-v3",
 }
 
 

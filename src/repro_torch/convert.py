@@ -18,7 +18,6 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_family
 
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -35,8 +34,8 @@ def from_jax_params(
 
     Every leaf keeps its dtype: a MoE layer's ``moe`` leaves carry over as
     they are, the router in float32 beside bfloat16 experts, as the
-    reference's tree has it."""
-    check_family(cfg)
+    reference's tree has it; a VLM's ``prefix_proj``, an audio model's
+    ``encoder`` and its decoder layers' ``cross`` too."""
     dev = resolve_device(device)
 
     def walk(node):

@@ -79,23 +79,23 @@ def _trace(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    # the device activities; a range of models/moe.py also shows on the device timeline, around its kernels
+    # the device activities; a range of the model's code also shows on the device timeline, around its kernels
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith(_MOE_RANGE)]
+              and not e.name.startswith(_RANGES)]
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / iters  # profiler times are us
     top: dict = {}
     for e in events:
         top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / iters
     nodes: dict = {}
-    linked = []  # (kernel, the operator that launched it, its MoE range, ms)
+    linked = []  # (kernel, the operator that launched it, the model's ranges around it (innermost first), ms)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU:
             if e.name.startswith(_NODE):
                 name = e.name[len(_NODE):]
                 nodes[name] = nodes.get(name, 0.0) + e.device_time_total / 1e3 / iters
             if e.kernels:
-                moe_range = next((a.name for a in _ancestors(e) if a.name.startswith(_MOE_RANGE)), None)
-                linked += [(k.name, e.name, moe_range, k.duration / 1e3 / iters) for k in e.kernels]
+                ranges = tuple(a.name for a in _ancestors(e) if a.name.startswith(_RANGES))
+                linked += [(k.name, e.name, ranges, k.duration / 1e3 / iters) for k in e.kernels]
     return {
         "wall_ms": wall_ms,
         "busy_ms": busy_ms if events else None,
@@ -108,7 +108,10 @@ def _trace(fn, iters: int) -> dict:
 
 
 _NODE = "autograd::engine::evaluate_function: "
-_MOE_RANGE = "moe."  # the prefix of the profiler ranges models/moe.py opens
+# the prefixes of the profiler ranges the model opens while the profiler records:
+# models/moe.py's, and model.encoder, model.cross and model.mlp (models/model.py,
+# transformer.py, layers.py)
+_RANGES = ("moe.", "model.")
 
 
 def _ancestors(e):
@@ -190,50 +193,61 @@ def report_train(r: dict) -> None:
               f"{k} {ms:.3f} ms" for k, ms in sorted(r["by_node"].items(), key=lambda kv: -kv[1])[:8]))
 
 
-# the kinds of a prefill: each kernel by the operator that launched it, the MoE
-# layer's by the range of models/moe.py that holds it, the rest by its name
-PREFILL_KINDS = ("S1", "K4", "K3", "K9", "MoE expert einsums", "MoE dispatch and combine (gathers, scatters)",
-                 "MoE routing (router, top-k, positions)", "attention einsums (aten::bmm)", "other matrix products",
-                 "softmax", "elementwise", "copies", "reductions", "other")
+# the kinds of a prefill: each kernel by the operator that launched it and the
+# model's ranges around it (the encoder's whole, then cross-attention, a MoE
+# layer's parts and the MLP), the rest by its name
+PREFILL_KINDS = ("S1", "K4", "K3", "K9", "encoder (all of it)", "cross-attention", "MoE expert einsums",
+                 "MoE dispatch and combine (gathers, scatters)", "MoE routing (router, top-k, positions)", "MLP",
+                 "attention einsums (aten::bmm)", "other matrix products", "softmax", "elementwise", "copies",
+                 "reductions", "other")
 
 
-def prefill_kind(kernel: str, op, moe_range) -> str:
+def prefill_kind(kernel: str, op, ranges=()) -> str:
     """The ``PREFILL_KINDS`` entry of one kernel launched by ``op`` inside
-    the MoE range ``moe_range`` (None where the profiler linked the kernel
-    to no operator, or outside any range)."""
+    the model's profiler ranges ``ranges`` (innermost first; ``op`` None
+    where the profiler linked the kernel to no operator)."""
     kind = kind_of(kernel)
     if kind == "K3/K4":  # the template's second argument: true for K4 (with values), false for K3
         return "K4" if "true" in kernel.split("sort_round_seg_kernel<", 1)[-1].split(">", 1)[0] else "K3"
     if kind in ("S1", "K9"):
         return kind
+    if "model.encoder" in ranges:
+        return "encoder (all of it)"
+    if "model.cross" in ranges:
+        return "cross-attention"
+    moe_range = next((r for r in ranges if r.startswith("moe.")), None)
     if moe_range == "moe.experts" and kind == "matrix products":
         return "MoE expert einsums"
     if moe_range in ("moe.dispatch", "moe.combine"):
         return "MoE dispatch and combine (gathers, scatters)"
     if moe_range in ("moe.route", "moe.positions", "moe.sort"):
         return "MoE routing (router, top-k, positions)"
+    if "model.mlp" in ranges:
+        return "MLP"
     if op == "aten::bmm":
         return "attention einsums (aten::bmm)"
     return "other matrix products" if kind == "matrix products" else kind
 
 
-def profile_prefill(prefill, params: dict, tokens: torch.Tensor, cache_len: int) -> dict:
-    """Trace one ``make_prefill_step`` call: the report of :func:`_trace`
-    with the device ms by kind (:data:`PREFILL_KINDS`): S1, K3, K4 and K9,
-    a MoE layer's expert products, its dispatch and combine and its
-    routing (by the ranges ``models/moe.py`` opens while the profiler
-    records), attention's einsums (the kernels ``aten::bmm`` launches
-    itself), the other products and the rest by name.  A kernel the
-    profiler linked to no operator (S1 and K4, which ``ctypes`` launches)
-    is classed by its name alone."""
-    r = _trace(lambda: prefill(params, {"tokens": tokens}, cache_len), 1)
+def profile_prefill(prefill, params: dict, batch: dict, cache_len: int) -> dict:
+    """Trace one ``make_prefill_step`` call on ``batch`` (its tokens, with
+    a VLM's ``prefix_emb`` or an audio model's ``frames``): the report of
+    :func:`_trace` with the device ms by kind (:data:`PREFILL_KINDS`): S1,
+    K3, K4 and K9, the audio encoder, the decoder's cross-attention, a MoE
+    layer's expert products, its dispatch and combine and its routing, the
+    dense MLP (by the ranges the model opens while the profiler records),
+    attention's einsums (the kernels ``aten::bmm`` launches itself), the
+    other products and the rest by name.  A kernel the profiler linked to
+    no operator (S1 and K4, which ``ctypes`` launches) is classed by its
+    name alone."""
+    r = _trace(lambda: prefill(params, batch, cache_len), 1)
     kinds = dict.fromkeys(PREFILL_KINDS, 0.0)
     unlinked = dict(r["by_name"])
-    for kernel, op, moe_range, ms in r["linked"]:
-        kinds[prefill_kind(kernel, op, moe_range)] += ms
+    for kernel, op, ranges, ms in r["linked"]:
+        kinds[prefill_kind(kernel, op, ranges)] += ms
         unlinked[kernel] = unlinked.get(kernel, 0.0) - ms
     for kernel, ms in unlinked.items():
-        kinds[prefill_kind(kernel, None, None)] += ms
+        kinds[prefill_kind(kernel, None)] += ms
     r["kinds"] = kinds
     return r
 
@@ -296,7 +310,8 @@ def main() -> None:
     params = _cast(init_params(cfg, seed=0, device="cuda"), _dtype(cfg))
     tokens = torch.randint(1, cfg.vocab_size, (1, HYBRID_PROMPT), generator=gen, device="cuda")
     print(f"{cfg.name} full width, fused scan, prompt (1, {HYBRID_PROMPT})")
-    report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, tokens, HYBRID_PROMPT + 16))
+    report_prefill("prefill",
+                   profile_prefill(make_prefill_step(cfg), params, {"tokens": tokens}, HYBRID_PROMPT + 16))
     del params
     torch.cuda.empty_cache()
 
@@ -304,7 +319,7 @@ def main() -> None:
     params = _cast(init_params(cfg, seed=0, device="cuda"), _dtype(cfg))
     tokens = torch.randint(1, cfg.vocab_size, (1, MOE_PROMPT), generator=gen, device="cuda")
     print(f"{cfg.name} full width, {cfg.num_layers} layers, merge_path_pallas dispatch, prompt (1, {MOE_PROMPT})")
-    report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, tokens, MOE_PROMPT + 16))
+    report_prefill("prefill", profile_prefill(make_prefill_step(cfg), params, {"tokens": tokens}, MOE_PROMPT + 16))
     del params
     torch.cuda.empty_cache()
     main_train()

@@ -5,8 +5,9 @@
 
 Like the reference's ``repro.launch.serve`` it serves the reduced config
 of ``--arch`` (tinyllama-1.1b, yi-6b, gemma3-12b, hymba-1.5b,
-falcon-mamba-7b, moonshot-v1-16b-a3b or phi3.5-moe-42b-a6.6b, or their
-aliases) with random weights from a seed, MoE routing on the kernel sort
+falcon-mamba-7b, moonshot-v1-16b-a3b, phi3.5-moe-42b-a6.6b, paligemma-3b
+or whisper-large-v3, or their aliases; the last two on tokens alone, as
+the reference's engine serves them) with random weights from a seed, MoE routing on the kernel sort
 (``moe_dispatch="merge_path_pallas"``: S1 and K4);
 ``--device`` picks the device (the card by default).
 """

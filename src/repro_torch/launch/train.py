@@ -7,8 +7,10 @@ The reference's ``repro.launch.train`` loop: data pipeline -> train step
 -> checkpoint cadence -> restart on failure (the supervisor) -> straggler
 report.  It trains the reduced config of ``--arch`` by default
 (``--no-reduced`` for the published widths: tinyllama-1.1b, yi-6b,
-gemma3-12b, hymba-1.5b, falcon-mamba-7b, moonshot-v1-16b-a3b or
-phi3.5-moe-42b-a6.6b), with Mamba heads on the fused selective scan (K9
+gemma3-12b, hymba-1.5b, falcon-mamba-7b, moonshot-v1-16b-a3b,
+phi3.5-moe-42b-a6.6b or paligemma-3b; like the reference's, the loop feeds
+tokens alone, so paligemma trains without its prefix and
+whisper-large-v3, which needs frames, does not train here), with Mamba heads on the fused selective scan (K9
 forward, K10 backward) and MoE routing on the kernel sort
 (``moe_dispatch="merge_path_pallas"``: S1 and K4), on the card unless
 ``--device cpu``.  Gradient compression (``--grad-compression``) comes

@@ -9,8 +9,10 @@ sequence, :func:`attention` takes the dense masked path up to
 ``FULL_ATTENTION_THRESHOLD`` keys and :func:`_blockwise` past it (a loop
 over KV chunks with a float32 running max, denominator and accumulator).
 The decode cache is updated in place, where the reference returns a new
-array: the caller's cache tensors are the state.  Cross-attention (the
-reference's ``kv=``) comes with the audio slice.
+array: the caller's cache tensors are the state.  Cross-attention
+(``attention(kv=...)`` over a whole sequence, :func:`cross_decode_attention`
+for one token) reads keys and values precomputed from the encoder's
+output, with no rotary embedding and no mask.
 """
 
 from __future__ import annotations
@@ -117,14 +119,25 @@ def attention(
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     force_blockwise: bool = False,
 ) -> torch.Tensor:
-    """Self-attention over a whole sequence: ``x (B,S,d) -> (B,S,d)``.
+    """Self (or cross, with ``kv``) attention over a whole sequence:
+    ``x (B,S,d) -> (B,S,d)``.
 
     Dense masked attention while the keys number at most
     ``FULL_ATTENTION_THRESHOLD`` (and ``force_blockwise`` is off), the
-    blockwise online softmax past it.  ``kv`` (cross-attention) raises.
+    blockwise online softmax past it.  With ``kv = (k, v)``, each ``(B,
+    Sk, K, hd)`` (the encoder output's projections), ``q`` is ``x @ wq``
+    with no rotary embedding and every query sees every key.
     """
     if kv is not None:
-        raise NotImplementedError("cross-attention (kv=) is ported with the audio slice, see ROADMAP.md")
+        b, s, _ = x.shape
+        k, v = kv
+        q = (x @ params["wq"]).reshape(b, s, num_kv, num_heads // num_kv, head_dim)
+        kpos = torch.arange(k.shape[1], device=x.device)
+        if k.shape[1] <= FULL_ATTENTION_THRESHOLD and not force_blockwise:
+            out = _sdpa(q, k, v, _mask(positions, kpos, "full", window, prefix_len), softcap)
+        else:
+            out = _blockwise(q, k, v, positions, "full", window, prefix_len, chunk, softcap)
+        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
     return self_attention(
         params, x, num_heads=num_heads, num_kv=num_kv, head_dim=head_dim, rope_theta=rope_theta,
         positions=positions, kind=kind, window=window, prefix_len=prefix_len, chunk=chunk, softcap=softcap,
@@ -199,3 +212,15 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, cache_v).reshape(b, 1, num_heads * head_dim)
     return out @ params["wo"], cache_k, cache_v
+
+
+def cross_decode_attention(params: Dict, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, *, num_heads: int,
+                           num_kv: int, head_dim: int) -> torch.Tensor:
+    """Cross-attention for one decode step: ``x (B,1,d)`` against the
+    encoder's ``xk``/``xv`` ``(B,S_enc,K,hd)``, every key seen: ``(B,1,d)``."""
+    b = x.shape[0]
+    q = (x @ params["wq"]).reshape(b, num_kv, num_heads // num_kv, head_dim)
+    scores = torch.einsum("bkgh,bskh->bkgs", q, xk).float() / math.sqrt(head_dim)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, xv).reshape(b, 1, num_heads * head_dim)
+    return out @ params["wo"]

@@ -31,28 +31,23 @@ layer yet).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import max_sentinel, merge_sort_kv_batched, merge_sort_kv_batched_ragged, searchsorted_batched
 from repro_torch.core.batched import _mask_rows
 
 from .layers import dense_init, mlp_init
+from .layers import profiler_range as _range
 
 DISPATCH_MODES = ("merge_path", "merge_path_pallas", "cumsum")
 _MASKED = 2 ** 30  # the position a masked slot reports: past any capacity
 
 
-def _range(name: str):
-    """A profiler range while ``torch.profiler`` records (so that
-    ``launch/profile.py`` can split a MoE layer's device time), else nothing."""
-    return record_function(name) if torch.autograd._profiler_enabled() else contextlib.nullcontext()
 
 
 def _stacked_init(gen: torch.Generator, shape, fan_in: int, dtype: torch.dtype, lead=()) -> torch.Tensor:

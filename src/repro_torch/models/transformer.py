@@ -1,17 +1,19 @@
 """Decoder stacks: parameter init, the per-layer layout, the prefill and training stack.
 
 The PyTorch counterpart of the reference's ``repro/models/transformer.py``
-for the dense, SSM, hybrid and MoE families.  Parameters keep the reference's
-layout so that weights convert one to one (:mod:`repro_torch.convert`):
-every layer parameter is stacked on a leading ``num_layers`` axis, and
-layers are grouped in homogeneous groups of ``cfg.layer_group`` (gemma3 6:
-5 sliding-window layers and 1 global, hymba 8: 7 and 1, the others 1).
-The stack (:func:`stack_forward`) runs the layers with the decode caches
-for prefill, or without them for training (each layer group
-rematerialised in the backward per ``cfg.remat`` and
-``cfg.remat_policy``).  A MoE layer's feed-forward is
-:func:`~repro_torch.models.moe.moe_apply`.  The VLM-prefix and
-encoder-decoder families come with later slices.
+for every family: dense, SSM, hybrid, MoE, VLM and audio.  Parameters keep
+the reference's layout so that weights convert one to one
+(:mod:`repro_torch.convert`): every layer parameter is stacked on a
+leading ``num_layers`` axis, and layers are grouped in homogeneous groups
+of ``cfg.layer_group`` (gemma3 6: 5 sliding-window layers and 1 global,
+hymba 8: 7 and 1, the others 1).  An encoder-decoder config's decoder
+layers also hold ``cross`` and ``cross_norm``, and its ``encoder`` holds
+layers of the same dims; a VLM config holds ``prefix_proj``.  The stack
+(:func:`stack_forward`) runs the layers with the decode caches for
+prefill, or without them for training (each layer group rematerialised
+in the backward per ``cfg.remat`` and ``cfg.remat_policy``).  A MoE
+layer's feed-forward is :func:`~repro_torch.models.moe.moe_apply`.
+:func:`abstract_params` gives the same tree as meta tensors.
 """
 
 from __future__ import annotations
@@ -24,26 +26,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import dense_init, mlp_apply, mlp_init, rms_norm
+from .layers import META, dense_init, mlp_apply, mlp_init, profiler_range, rms_norm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not run yet."""
-    if cfg.family not in (DENSE, SSM, HYBRID, MOE) or cfg.is_encoder_decoder or cfg.num_prefix_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is ported in a later slice, see ROADMAP.md"
-        )
 
 
 def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, lead) -> Dict:
@@ -57,15 +51,19 @@ def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, lead) -> Dict:
     }
 
 
-def _layers_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
-    """All layers' parameters, stacked on a leading ``num_layers`` axis."""
-    lead = (cfg.num_layers,)
+def _layers_init(gen: torch.Generator, cfg: ModelConfig, dtype, num_layers: int, cross: bool) -> Dict:
+    """``num_layers`` layers' parameters, stacked on a leading axis; with
+    ``cross`` each also has its cross-attention and its norm."""
+    lead = (num_layers,)
     norm_shape = lead + (cfg.d_model,)
     p: Dict[str, Any] = {"attn_norm": torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)}
     if cfg.family != SSM:
         p["attn"] = _attn_init(gen, cfg, dtype, lead)
     if cfg.family in (SSM, HYBRID):
         p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, lead)
+    if cross:
+        p["cross"] = _attn_init(gen, cfg, dtype, lead)
+        p["cross_norm"] = torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)
     if cfg.num_experts:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
         p["ffn_norm"] = torch.zeros(norm_shape, dtype=torch.float32, device=gen.device)
@@ -86,19 +84,35 @@ def init_params(
     the numbers differ from the reference's (another generator), so tests
     hand both packages one set of weights through :mod:`repro_torch.convert`.
     """
-    check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
+    return _params_init(gen, cfg)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """:func:`init_params`' tree as meta tensors: the reference's shapes
+    and dtypes, nothing allocated or drawn (the dry run's parameters)."""
+    return _params_init(META, cfg)
+
+
+def _params_init(gen, cfg: ModelConfig) -> Dict:
     dtype = _dtype(cfg)
     d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": {"table": dense_init(gen, (cfg.vocab_size, d), d, dtype)},
-        "final_norm": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "layers": _layers_init(gen, cfg, dtype),
+        "final_norm": torch.zeros((d,), dtype=torch.float32, device=gen.device),
+        "layers": _layers_init(gen, cfg, dtype, cfg.num_layers, cfg.is_encoder_decoder),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (d, cfg.vocab_size), d, dtype)
+    if cfg.num_prefix_tokens:
+        params["prefix_proj"] = dense_init(gen, (d, d), d, dtype)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {  # the encoder's layers have the decoder's dims
+            "layers": _layers_init(gen, cfg, dtype, cfg.encoder_layers, False),
+            "final_norm": torch.zeros((d,), dtype=torch.float32, device=gen.device),
+            "frame_proj": dense_init(gen, (d, d), d, dtype),
+        }
     return params
 
 
@@ -140,6 +154,7 @@ def _layer_fwd(
     window: int,
     kind: str,
     prefix_len: int,
+    enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     collect_cache: bool = False,
     cache_len: int = 0,
 ):
@@ -152,7 +167,9 @@ def _layer_fwd(
     and ``v`` ``(B, clen, K, hd)``, ``clen = min(cache_len, window)`` on a
     sliding-window layer (a ring: a prompt longer than the window wraps
     onto slots ``position % clen``), and the Mamba ``conv`` and ``ssm``
-    states.  Without it the cache is empty.
+    states.  Without it the cache is empty.  A decoder layer of an
+    encoder-decoder model attends over ``enc_kv``, the encoder output's
+    keys and values for this layer, after ``x + mix`` and before its MLP.
     """
     cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
@@ -175,6 +192,12 @@ def _layer_fwd(
             y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
         mix = y if mix is None else mix + y
     x = x + mix
+    if "cross" in p and enc_kv is not None:
+        with profiler_range("model.cross"):
+            hc = rms_norm(x, p["cross_norm"], cfg.rms_eps)
+            x = x + attn_mod.attention(p["cross"], hc, num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+                                       head_dim=cfg.resolved_head_dim, rope_theta=0.0, positions=positions,
+                                       kv=enc_kv)
     if "ffn_norm" in p:
         hf = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
         x = x + (moe_mod.moe_apply(p["moe"], hf, cfg) if "moe" in p else mlp_apply(p["mlp"], hf, cfg.act))
@@ -224,6 +247,7 @@ def stack_forward(
     *,
     kind: str = "causal",
     prefix_len: int = 0,
+    enc_kv_layers: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     collect_caches: bool = False,
     cache_len: int = 0,
 ):
@@ -237,19 +261,25 @@ def stack_forward(
     under ``torch.utils.checkpoint``: with ``remat_policy="dots"`` the
     outputs of its matrix products are kept and the rest is recomputed in
     the backward (:func:`_dots_policy`); with ``"full"`` all of it is, as
-    the reference's ``jax.checkpoint`` of the scan body.
+    the reference's ``jax.checkpoint`` of the scan body.  An
+    encoder-decoder's ``enc_kv_layers`` are every decoder layer's cross
+    keys and values, ``(L, B, S_enc, K, hd)`` each; layer ``l`` reads its
+    slice (views, whose gradients reach the encoder under remat too).
     """
     gp = cfg.layer_group
     ng = cfg.num_layers // gp
     windows = _group_windows(cfg)
     per_layer = unstack_layers(layers, cfg.num_layers)
+    # one unbind each, as for the parameters: the backward stacks the slices' gradients once
+    enc_kv = (list(zip(torch.unbind(enc_kv_layers[0]), torch.unbind(enc_kv_layers[1]))) if enc_kv_layers is not None
+              else [None] * cfg.num_layers)
     kw = dict(kind=kind, prefix_len=prefix_len)
     if collect_caches:
         collected: List[Dict[str, List[torch.Tensor]]] = [{} for _ in range(gp)]
         for g in range(ng):
             for i in range(gp):
                 x, cache = _layer_fwd(cfg, per_layer[g * gp + i], x, positions, window=windows[i],
-                                      collect_cache=True, cache_len=cache_len, **kw)
+                                      enc_kv=enc_kv[g * gp + i], collect_cache=True, cache_len=cache_len, **kw)
                 for name, t in cache.items():
                     collected[i].setdefault(name, []).append(t)
         return x, {f"sub{i}": {name: torch.stack(ts) for name, ts in c.items()} for i, c in enumerate(collected)}
@@ -260,7 +290,8 @@ def stack_forward(
 
     def group(x, g):
         for i in range(gp):
-            x, _ = _layer_fwd(cfg, per_layer[g * gp + i], x, positions, window=windows[i], **kw)
+            x, _ = _layer_fwd(cfg, per_layer[g * gp + i], x, positions, window=windows[i], enc_kv=enc_kv[g * gp + i],
+                              **kw)
         return x
 
     for g in range(ng):

@@ -7,7 +7,8 @@ accumulated over microbatches, and the AdamW update.  The state is the
 reference's: ``{"step", "params", "opt": {"m", "v"}}`` with float32
 masters and moments (:func:`init_train_state`).  ``make_prefill_step(cfg)``
 and ``make_decode_step(cfg)`` return the serve steps that the reference's
-dry run lowers for its ``prefill`` and ``decode`` shapes.  Every step
+dry run lowers for its ``prefill`` and ``decode`` shapes
+(:func:`abstract_train_state` is the train state as meta tensors).  Every step
 casts the parameters to the compute dtype first, with the reference's
 rule (:func:`_cast`).  A leaf already in that dtype passes through
 uncopied, so a caller that serves many steps casts its parameters once
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models import forward_decode, forward_prefill, forward_train, init_params
+from repro_torch.models import abstract_params, forward_decode, forward_prefill, forward_train, init_params
 from repro_torch.models.transformer import _dtype
 from repro_torch.optim.adamw import adamw_update, init_opt_state, tree_leaves
 
@@ -68,10 +69,20 @@ def init_train_state(
     ``device`` (the card by default), the parameters from :func:`init_params`
     at ``seed``."""
     _check_compression(tcfg)
-    dev = resolve_device(device)
-    params = init_params(cfg, seed=seed, device=dev)
+    return _train_state(init_params(cfg, seed=seed, device=resolve_device(device)))
+
+
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> Dict[str, Any]:
+    """:func:`init_train_state`'s tree as meta tensors: shapes and dtypes,
+    nothing allocated (the dry run's train state)."""
+    _check_compression(tcfg)
+    return _train_state(abstract_params(cfg))
+
+
+def _train_state(params: Dict) -> Dict[str, Any]:
     params = _rebuild(params, [p.float() for p in tree_leaves(params)])
-    return {"step": torch.zeros((), dtype=torch.int32, device=dev), "params": params, "opt": init_opt_state(params)}
+    step = torch.zeros((), dtype=torch.int32, device=params["final_norm"].device)
+    return {"step": step, "params": params, "opt": init_opt_state(params)}
 
 
 def _cast(params: Dict, dtype: torch.dtype) -> Dict:
@@ -90,12 +101,14 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params: Dict, batch: Dic
     """``(loss, {"ce", "z_loss"}, grads)`` of one batch: the loss of
     ``forward_train`` on the parameters cast with :func:`_cast`, and its
     float32 gradient with respect to the masters ``params``, in their
-    layout.  ``batch`` holds tensors on the parameters' device."""
+    layout; a parameter the batch does not reach (a VLM's ``prefix_proj``
+    without ``prefix_emb``) gets zeros, as under ``jax.grad``.  ``batch``
+    holds tensors on the parameters' device."""
     masters = [p.detach().requires_grad_() for p in tree_leaves(params)]
     logits = forward_train(cfg, _cast(_rebuild(params, masters), _dtype(cfg)), batch)
     loss, metrics = cross_entropy_loss(logits, batch["labels"], tcfg.z_loss)
     del logits
-    grads = torch.autograd.grad(loss, masters)
+    grads = torch.autograd.grad(loss, masters, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _rebuild(params, list(grads))
 
 
@@ -145,8 +158,11 @@ def make_prefill_step(cfg: ModelConfig):
     compute_dtype = _dtype(cfg)
 
     def prefill_step(params: Dict, batch: Dict, cache_len: int = 0):
-        """``(last-position logits (B, V), caches)`` for ``batch["tokens"]``,
-        the attention caches of ``cache_len`` (the prompt's length when 0)."""
+        """``(last-position logits (B, V), caches)`` for ``batch["tokens"]``
+        (with its ``prefix_emb`` or ``frames``), the attention caches of
+        ``cache_len`` (the sequence's length when 0).  As in the reference,
+        an audio model's ``enc_kv`` is not returned: a caller that decodes
+        takes it from ``forward_prefill`` or ``encoder_forward``."""
         logits, caches, _ = forward_prefill(cfg, _cast(params, compute_dtype), batch, cache_len)
         return logits, caches
 
@@ -156,8 +172,9 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     compute_dtype = _dtype(cfg)
 
-    def decode_step(params: Dict, caches: Dict, token: torch.Tensor, pos: torch.Tensor):
-        """``(logits (B, V), caches)``; the caches are updated in place."""
-        return forward_decode(cfg, _cast(params, compute_dtype), caches, token, pos)
+    def decode_step(params: Dict, caches: Dict, token: torch.Tensor, pos: torch.Tensor, enc_kv=None):
+        """``(logits (B, V), caches)``; the caches are updated in place; an
+        audio model's cross-attention reads ``enc_kv``."""
+        return forward_decode(cfg, _cast(params, compute_dtype), caches, token, pos, enc_kv=enc_kv)
 
     return decode_step

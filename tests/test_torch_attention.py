@@ -94,7 +94,8 @@ def test_attention_matches_reference(kind, window, prefix_len, softcap, force_bl
 
 def test_attention_goes_blockwise_past_the_threshold(monkeypatch):
     """Past ``FULL_ATTENTION_THRESHOLD`` keys ``attention`` takes the
-    blockwise path, as the reference does; ``kv=`` raises."""
+    blockwise path, as the reference does; so does cross-attention
+    (``kv=``), by the count of the encoder's keys."""
     calls = []
     real = attn._blockwise
     monkeypatch.setattr(attn, "_blockwise", lambda *a: calls.append(a[1].shape[1]) or real(*a))
@@ -106,5 +107,8 @@ def test_attention_goes_blockwise_past_the_threshold(monkeypatch):
     assert calls == []
     attn.attention(p, x, positions=torch.arange(21), **kw)
     assert calls == [21]
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        attn.attention(p, x, positions=torch.arange(21), kv=(x, x), **kw)
+    kv = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 1, 21, 2, 8)).astype(np.float32))
+    attn.attention(p, x[:, :5], positions=torch.arange(5), kv=(kv[0, :, :20], kv[1, :, :20]), **kw)
+    assert calls == [21]
+    attn.attention(p, x[:, :5], positions=torch.arange(5), kv=(kv[0], kv[1]), **kw)
+    assert calls == [21, 21]

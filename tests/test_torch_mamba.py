@@ -28,7 +28,6 @@ from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.kernels import WRAPPERS, reset_launches
 from repro_torch.models import forward_decode, forward_prefill, init_caches, init_params
-from repro_torch.models.transformer import check_family
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.train import make_decode_step, make_prefill_step
 from repro_torch.train.steps import _cast
@@ -173,21 +172,20 @@ def test_engine_prefill_moves_the_other_slots_like_reference(weights):
 
 
 def test_attention_prefill_and_other_families_wait():
-    """Attention prefill is ported: the dense, hybrid and MoE families
-    prefill.  The VLM-prefix and audio families still raise."""
-    for arch in ("tinyllama", "moonshot"):
+    """Attention prefill is ported, and no family waits any more: the
+    dense, MoE, VLM-prefix and audio families prefill (the VLM with its
+    prefix counted in the cache, the audio model with its ``enc_kv``)."""
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for arch in ("tinyllama", "moonshot", "paligemma", "whisper"):
         cfg = get_config(arch).reduced()
-        logits, caches, _ = forward_prefill(cfg, init_params(cfg, seed=0, device="cpu"),
-                                            {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-        assert logits.shape == (1, cfg.vocab_size) and caches["sub0"]["k"].shape[2] == 4
-    base = get_config("falcon-mamba").reduced()
-    check_family(dataclasses.replace(base, family="hybrid"))
-    check_family(dataclasses.replace(base, family="moe", num_experts=4, experts_per_token=2))
-    for later in (dict(family="vlm", num_prefix_tokens=8), dict(family="audio", encoder_layers=2, encoder_seq=24)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            check_family(dataclasses.replace(base, **later))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            forward_prefill(dataclasses.replace(base, **later), {}, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+        batch = {"tokens": tokens}
+        if cfg.num_prefix_tokens:
+            batch["prefix_emb"] = torch.zeros((1, cfg.num_prefix_tokens, cfg.d_model))
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
+        logits, caches, enc_kv = forward_prefill(cfg, init_params(cfg, seed=0, device="cpu"), batch)
+        assert logits.shape == (1, cfg.vocab_size) and caches["sub0"]["k"].shape[2] == 4 + cfg.num_prefix_tokens
+        assert (enc_kv is None) != cfg.is_encoder_decoder
 
 
 def test_chip_phase_runs_on_the_cpu():

@@ -111,15 +111,24 @@ def test_entry_points_refuse_a_silent_cpu(monkeypatch, weights):
 
 
 def test_other_families_wait_for_a_later_slice():
-    """The MoE family builds (its experts in place of the MLP); the VLM and
-    audio families wait for a later slice."""
+    """No family waits any more.  The MoE family builds (its experts in
+    place of the MLP); the VLM and audio families build with the
+    reference's layout: a VLM's ``prefix_proj``, an audio model's
+    ``encoder`` and its decoder layers' ``cross`` and ``cross_norm``, and
+    the caches of both."""
     base = get_config("tinyllama-1.1b").reduced()
     moe_cfg = dataclasses.replace(base, family="moe", num_experts=4, experts_per_token=2)
     assert set(init_params(moe_cfg, device="cpu")["layers"]) == {"attn_norm", "attn", "moe", "ffn_norm"}
     assert set(init_caches(moe_cfg, 1, 8, device="cpu")["sub0"]) == {"k", "v"}
+
+    def layout(tree):
+        return {k: layout(v) if isinstance(v, dict) else (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                for k, v in tree.items()}
+
     for later in (dict(family="vlm", num_prefix_tokens=8), dict(family="audio", encoder_layers=2, encoder_seq=24)):
-        cfg = dataclasses.replace(base, **later)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            init_caches(cfg, 1, 8, device="cpu")
+        cfg, jcfg = (dataclasses.replace(c, **later) for c in (base, jax_get_config("tinyllama-1.1b").reduced()))
+        want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                            jax.eval_shape(lambda k: jax_init_params(jcfg, k), jax.random.key(0)))
+        assert layout(init_params(cfg, device="cpu")) == want
+        assert layout(init_caches(cfg, 1, 8, device="cpu")) == jax.tree.map(
+            lambda a: (tuple(a.shape), str(a.dtype)), jax_init_caches(jcfg, 1, 8))
