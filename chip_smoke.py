@@ -134,7 +134,17 @@ Phases (any failure raises, and the script exits non-zero):
     versions; the bfloat16 gelu against the CPU; both prefills traced by
     kind; the reduced configs against the CPU; its numbers on a line of
     their own;
-14. the ``kernels`` line, the card line and the result line.
+14. the parallel layer and the dry run (:func:`phase_parallel`):
+    nemotron-4-340b at full width cut to 2 of 96 layers prefilled on (1,
+    4096) and 16 tokens sampled on S1 and K4 (read per token), S1 and K4 on
+    a sampled row against their plain versions, prefill against stepping;
+    tinyllama-1.1b trained with gradient compression (``"topk"``,
+    ``"int8"``) beside ``"none"``, ``compress_grads`` on the card against
+    the CPU bit for bit; context-parallel decode attention over a cache of
+    524288 positions, sharded and over NCCL at world size 1, against dense
+    attention; one dry-run cell on the single-pod mesh of fake ranks in a
+    process of its own; its numbers on a line of their own;
+15. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -4243,6 +4253,389 @@ def phase_vlm_audio(device: str = "cuda", reduce: bool = False, card: str = "cpu
     return out
 
 
+PAR_ARCH, PAR_LAYERS = "nemotron-4-340b", 2  # full width, 2 of 96 layers: 32.7 GB of bfloat16 weights
+PAR_PROMPT, PAR_NEW, PAR_STEP_PROMPT = 4096, 16, 32
+COMP_ARCH, COMP_SEQ, COMP_STEPS, COMP_FRAC = "tinyllama-1.1b", 4096, 3, 0.01
+CP_LEN, CP_SHARDS, CP_INVALID = 524288, 8, 5  # long_500k's cache, 8 shards, the last 1/5 of the positions invalid
+CP_F32_RTOL = 1e-5  # float32 cache: the sums in another order, of max |out|
+# bfloat16 cache, of max |out|: the scores, p and the weighted values round to bfloat16 (einsums in the cache's dtype, as
+# the reference's body), and the output, an average over 419430 valid keys, is small (about 0.01)
+CP_BF16_RTOL = 2.0 ** -5
+DRY_CELL, DRY_FALLBACK, DRY_LIMIT_S = ("nemotron-4-340b", "train_4k"), ("tinyllama-1.1b", "train_4k"), 120.0
+# a cell whose step stops on an operation without a sharding rule in this torch's DTensor (torch 2.11 has none for
+# the vocab-parallel embedding's gradient) is reported, and this one is taken for the roofline terms
+DRY_RULES_FALLBACK = ("nemotron-4-340b", "prefill_32k")
+
+
+def combine_stacked(m, l, o):
+    """``combine_partials``' online-softmax combine with the exchange
+    emulated on one device: the max and the two sums over the stacked
+    first axis (one entry per shard) in place of the all-reduces."""
+    import torch
+
+    m_glob = m.amax(0)
+    scale = torch.exp(m - m_glob)
+    return (o * scale[..., None]).sum(0) / torch.clamp((l * scale).sum(0)[..., None], min=1e-30)
+
+
+def dense_decode_attention(q, k, v, valid):
+    """Float32 attention of one query ``(B, K, G, hd)`` over a whole cache
+    ``(B, S, K, hd)``: the yardstick of the context-parallel forms."""
+    import torch
+
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.where(valid[:, None, None, :], s, -1e30), dim=-1)
+    return torch.einsum("bkgs,bskh->bkgh", p, v.float())
+
+
+def dry_run_record(proc, path: str, cell) -> dict:
+    """Wait for :func:`dry_run_cell`'s process and return its record: ``ok``,
+    or ``error`` with the operation it stopped on; anything else raises."""
+    import os
+
+    stdout, stderr = proc.communicate(timeout=900)
+    record = None
+    if os.path.exists(path):
+        with open(path) as f:
+            record = json.load(f)
+    check(record is not None and (record["status"] == "ok" and proc.returncode == 0
+                                  or record["status"] == "error" and proc.returncode == 1),
+          f"dry run {cell} exited {proc.returncode}: " + (str(record)[:1500] if record else stdout[-1500:] + stderr[-1500:]))
+    return record
+
+
+def dry_run_cell(arch: str, shape: str, out_dir: str):
+    """Start one dry-run cell (``python -m repro_torch.launch.dryrun``) in a
+    process of its own, which touches no card: ``(process, record path,
+    start time)``."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cell_filename
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, os.path.join(out_dir, cell_filename(get_config(arch).name, shape, False)), time.perf_counter()
+
+
+def phase_parallel(device: str = "cuda", reduce: bool = False, card: str = "cpu", layers: int = PAR_LAYERS,
+                   prompt: int = PAR_PROMPT, new_tokens: int = PAR_NEW, step_prompt: int = PAR_STEP_PROMPT,
+                   comp_seq: int = COMP_SEQ, steps: int = COMP_STEPS, cp_len: int = CP_LEN, cp_shards: int = CP_SHARDS,
+                   dry=DRY_CELL, seed: int = 19) -> dict:
+    """The parallel layer and the dry run.
+
+    1. nemotron-4-340b at full width cut to ``layers`` of 96 layers (random
+       weights from seed 0, bfloat16; the squared-ReLU MLP), driven once with
+       every count at 0: ``make_prefill_step`` of ``(1, prompt)``, then
+       ``new_tokens`` tokens sampled with top-k 40 through
+       ``make_decode_step`` (vocab 256000 pads to 262144: S1 once and 9 K4
+       rounds per token, read per token).  S1 and every K4 round on the last
+       sampled row against their plain versions (:func:`sampler_row`);
+       layer 0's k and v after a prefill of ``step_prompt`` tokens against
+       stepping; the reduced nemotron on this device against the CPU.
+    2. tinyllama-1.1b at full width trained ``steps`` steps of ``(1,
+       comp_seq)`` with ``grad_compression="none"``, then ``"topk"`` (frac
+       0.01) and ``"int8"``, each carrying its ``err`` (no kernel
+       launches).  ``compress_grads`` on this device against the CPU on the
+       same gradient tree and error state, bit for bit for both methods:
+       every leaf, the small ones (the stacked norms, ``final_norm``) on the
+       merge-path top-k, the others on the quantile threshold.
+    3. Context-parallel decode attention at tinyllama's head layout (K = 4,
+       G = 8, hd = 64), batch 1, over a cache of ``cp_len`` positions whose
+       last fifth is invalid, bfloat16 and float32: ``local_partial_attention``
+       on ``cp_shards`` shards with the combine emulated on the device
+       (:func:`combine_stacked`), and ``context_parallel_decode_attention``
+       over a process group of one rank (NCCL on the card, gloo on the CPU),
+       both against dense float32 attention over the whole cache.
+    4. One dry-run cell (``dry``, ``(arch, shape)`` on the single-pod mesh)
+       in a process of its own, started first so it runs beside the rest;
+       if it takes more than 120 s, tinyllama-1.1b's ``train_4k`` instead.
+    With ``device="cpu"`` and ``reduce=True`` (the tests, at a small size)
+    the configs are the reduced ones, the wrappers run their plain
+    versions, nothing is launched or timed, and every check runs but the
+    card against the CPU.
+    Returns the phase's numbers.
+    """
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLMPipeline
+    from repro_torch.kernels import WRAPPERS, reset_launches
+    from repro_torch.kernels.tune import pick
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import _dtype
+    from repro_torch.parallel.compression import compress_grads
+    from repro_torch.serving import topk_sample
+    from repro_torch.serving.context_parallel import context_parallel_decode_attention, local_partial_attention
+    from repro_torch.train import init_train_state, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train.steps import _cast, loss_and_grads
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(seed)
+    out = {"card": card}
+    tmp = tempfile.TemporaryDirectory()
+    dry_proc = dry_run_cell(*dry, tmp.name) if dry else None
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+    def want(**kw):
+        res = dict.fromkeys((fn.__name__ for fn in WRAPPERS), 0)
+        if on_card:
+            res.update(kw)
+        return res
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # 1. nemotron: prefill, sampling on S1 and K4, the sampled row, prefill against stepping
+    base = get_config(PAR_ARCH)
+    cfg = base.reduced() if reduce else dataclasses.replace(base, num_layers=layers)
+    free()
+    t0 = time.perf_counter()
+    params = _cast(init_params(cfg, seed=0, device=device), _dtype(cfg))
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"parallel: {cfg.name} cut to {cfg.num_layers} of {base.num_layers} layers (d={cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.act}), "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}): {n_bytes / 1e9:.3f} GB of weights from seed 0 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    cache_len = prompt + new_tokens
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": tokens}, cache_len)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = counts()
+    sampled = [topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel")]
+    per_token = [counts()]
+    sync()
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        logits, caches = decode(params, caches, sampled[-1][:, None], torch.full((1,), prompt + i, device=device))
+        sampled.append(topk_sample(logits, sgen, k=40, temperature=0.8, backend="kernel"))
+        per_token.append(counts())
+    sync()
+    decode_s = time.perf_counter() - t0
+    launches = counts()
+    ids = torch.stack(sampled)
+    rounds = wide_rounds(cfg.vocab_size, pick(cfg.vocab_size)[0])
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), f"{cfg.name} sampled ids {ids.tolist()}")
+    check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name} decode logits not finite")
+    for name, t in caches["sub0"].items():
+        check(tuple(t.shape[1:3]) == (1, cache_len) and bool(torch.isfinite(t.float()).all()),
+              f"{cfg.name} cache {name} {tuple(t.shape)} not finite or not (1, {cache_len})")
+    check(prefill_launches == want(), f"{cfg.name} prefill launched {prefill_launches}")
+    steps_k4 = [b["sort_round_kv"] - a["sort_round_kv"] for a, b in zip([prefill_launches] + per_token, per_token)]
+    steps_s1 = [b["sort_tiles_kv"] - a["sort_tiles_kv"] for a, b in zip([prefill_launches] + per_token, per_token)]
+    check(launches == want(sort_round_kv=new_tokens * rounds, sort_tiles_kv=new_tokens),
+          f"{cfg.name} serving path launched {launches}")
+    if on_card:
+        check(steps_k4 == [rounds] * new_tokens and steps_s1 == [1] * new_tokens,
+              f"{cfg.name} K4 and S1 launches per token {steps_k4}, {steps_s1}, want {rounds} and 1 each")
+    peak = peak_gb()
+    print(f"parallel: {cfg.name} prefill of (1, {prompt}) (dense attention) in {prefill_s * 1e3:.1f} ms (the first "
+          f"call; no kernel launched); {new_tokens} tokens sampled (top-k 40), {new_tokens - 1} decode steps in "
+          f"{decode_s * 1e3:.1f} ms ({decode_s * 1e3 / max(1, new_tokens - 1):.2f} ms per step with its sample); K4 "
+          f"launches per token {steps_k4}, S1 {steps_s1} ({rounds} wide rounds of {cfg.vocab_size} padded to a power "
+          f"of two); peak memory " + (f"{peak:.2f} GB" if on_card else "not measured") + f"; ids {ids[:, 0].tolist()} "
+          f"({card})")
+    row = sampler_row(logits, "nemotron", on_card)
+    out["nemotron"] = {"layers": cfg.num_layers, "weights_gb": n_bytes / 1e9, "prefill_ms": prefill_s * 1e3,
+                       "decode_step_ms": decode_s * 1e3 / max(1, new_tokens - 1), "sampled": new_tokens,
+                       "k4_launches": launches["sort_round_kv"], "s1_launches": launches["sort_tiles_kv"],
+                       "k4_per_token": steps_k4, "s1_per_token": steps_s1, "peak_gb": peak, "row": row}
+    del caches, logits
+    print("parallel: nemotron " + _prefill_against_stepping(cfg, params, prefill, decode,
+                                                             tokens[:, :step_prompt], device))
+    del params
+    free()
+    reduced_against_cpu(device, PAR_ARCH)
+
+    # 2. tinyllama trained with gradient compression; compress_grads on the card against the CPU
+    ccfg = get_config(COMP_ARCH)
+    ccfg = ccfg.reduced() if reduce else ccfg
+    pipe = SyntheticLMPipeline(ccfg, 1, comp_seq, PipelineConfig(seed=0))
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in pipe.batch_at(i).items()} for i in range(steps)]
+    out["compression"] = {}
+    for method in ("none", "topk", "int8"):
+        free()
+        tcfg = TrainConfig(z_loss=1e-4, grad_clip=1.0, grad_compression=method, compression_topk=COMP_FRAC)
+        state = init_train_state(ccfg, tcfg, seed=0, device=device)
+        state["step"].fill_(1)
+        step_fn = make_train_step(ccfg, tcfg)
+        losses, step_ms = [], []
+        reset_launches()
+        for i, batch in enumerate(batches):
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            state, m = step_fn(state, batch)
+            if on_card:
+                ev[1].record()
+                ev[1].synchronize()
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+                  f"{ccfg.name} {method} step {i + 1}: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+        check(counts() == want(), f"{ccfg.name} {method} training launched {counts()}")
+        rec = {"losses": losses, "step_ms": step_ms,
+               "ms": sum(step_ms[1:]) / max(1, len(step_ms) - 1) if on_card else None, "peak_gb": peak_gb()}
+        if method != "none":
+            err = state["err"]
+            nonzero = sum(int((t != 0).any()) for t in _leaves(err))
+            check(set(state) == {"step", "params", "opt", "err"} and nonzero > 0,
+                  f"{ccfg.name} {method}: the error state {sorted(state)} carries nothing")
+            sizes = [t.numel() for t in _leaves(err)]
+            rec.update(err_leaves_nonzero=nonzero, leaves=len(sizes), small_leaves=sum(n <= 65536 for n in sizes),
+                       elements=sum(sizes))
+            if on_card:  # the card's compress_grads against the CPU's on the same gradients and error state
+                _, _, grads = loss_and_grads(ccfg, tcfg, state["params"], batches[0])
+                t0 = time.perf_counter()
+                got = compress_grads(grads, err, method, COMP_FRAC)
+                sync()
+                dev_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ref = compress_grads(_to(grads, "cpu"), _to(err, "cpu"), method, COMP_FRAC)
+                cpu_s = time.perf_counter() - t0
+                leaves, differ = 0, []
+                for part, (g_tree, r_tree) in zip(("compressed", "error"), zip(got, ref)):
+                    for (name, g), r in zip(_named_leaves(g_tree), _leaves(r_tree)):
+                        leaves += 1
+                        if not torch.equal(g.cpu().view(torch.int32), r.view(torch.int32)):
+                            differ.append(f"{part} {name}")
+                check(not differ, f"{method} compress_grads on {device} differs from the CPU: {differ[:6]}")
+                rec.update(compress_s=dev_s, compress_cpu_s=cpu_s)
+                print(f"parallel: {method} compress_grads of {ccfg.name}'s gradient tree ({len(sizes)} leaves, "
+                      f"{sum(sizes) / 1e9:.3f} B elements; {rec['small_leaves']} of at most 65536 on the merge-path "
+                      f"top-k) with the error state of its {steps} steps on {device} bit-identical to the CPU "
+                      f"({leaves} outputs); {dev_s * 1e3:.1f} ms on {device}, {cpu_s:.2f} s on the CPU (host clock)")
+                del grads, got, ref
+            del err
+        out["compression"][method] = rec
+        print(f"parallel: {ccfg.name} {steps} train steps of (1, {comp_seq}) with grad_compression={method!r}: "
+              f"losses {[round(x, 5) for x in losses]}" + (f"; step ms (CUDA events) {[round(x, 3) for x in step_ms]}"
+              f", {rec['ms']:.3f} after the first; peak memory {rec['peak_gb']:.2f} GB" if on_card else "")
+              + "; no kernel launched")
+        del state
+    free()
+
+    # 3. context-parallel decode attention over a long cache: P shards emulated, and one rank over a process group
+    b, kh, g, hd = 1, ccfg.num_kv_heads, ccfg.num_heads // ccfg.num_kv_heads, ccfg.resolved_head_dim
+    valid = (torch.arange(cp_len, device=device) < cp_len - cp_len // CP_INVALID)[None].expand(b, cp_len)
+    out["context_parallel"] = {"positions": cp_len, "shards": cp_shards, "heads": [kh, g, hd]}
+    port = free_port()
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        for dtype, rtol in ((torch.bfloat16, CP_BF16_RTOL), (torch.float32, CP_F32_RTOL)):
+            q = torch.randn((b, kh, g, hd), generator=gen, device=device).to(dtype)
+            k = torch.randn((b, cp_len, kh, hd), generator=gen, device=device).to(dtype)
+            v = torch.randn((b, cp_len, kh, hd), generator=gen, device=device).to(dtype)
+            n = cp_len // cp_shards
+
+            def sharded():
+                parts = [local_partial_attention(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                                                 valid[:, i * n:(i + 1) * n]) for i in range(cp_shards)]
+                return combine_stacked(*(torch.stack(t) for t in zip(*parts)))
+
+            dense = dense_decode_attention(q, k, v, valid)
+            top = float(dense.abs().max())
+            errs = {"sharded": float((sharded() - dense).abs().max()),
+                    "group_of_one": float((context_parallel_decode_attention(q, k, v, valid) - dense).abs().max())}
+            for form, e in errs.items():
+                check(e <= rtol * top, f"context-parallel decode ({form}, {dtype}) differs from dense attention by "
+                                       f"{e:.3g}, more than {rtol:.3g} of max |out| {top:.3g}")
+            rec = {"max_abs_err": errs, "max_abs_out": top, "rtol_of_max": rtol}
+            if on_card:  # the dense form: the same decode math over the whole cache as one shard
+                rec.update(dense_ms=time_ms(lambda: combine_stacked(*(t[None] for t in local_partial_attention(
+                    q, k, v, valid))), iters=5), sharded_ms=time_ms(sharded, iters=5))
+            out["context_parallel"][str(dtype).split(".")[-1]] = rec
+            print(f"parallel: context-parallel decode attention, (1, {cp_len}) {str(dtype).split('.')[-1]} cache "
+                  f"(K={kh}, G={g}, hd={hd}; the last {cp_len // CP_INVALID} positions invalid): {cp_shards} shards "
+                  f"combined on the device within {errs['sharded']:.3g}, one rank over {dist.get_backend()} within "
+                  f"{errs['group_of_one']:.3g} of dense float32 attention (tolerance {rtol:.3g} of max |out| "
+                  f"{top:.3g})" + (f"; dense {rec['dense_ms']:.4f} ms, sharded {rec['sharded_ms']:.4f} ms (CUDA "
+                                   f"events; dense: one shard of the whole cache)" if on_card else ""))
+            del q, k, v
+    finally:
+        dist.destroy_process_group()
+
+    # 4. the dry-run cell, which ran beside the rest
+    if dry_proc is not None:
+        proc, path, t0 = dry_proc
+        record = dry_run_record(proc, path, dry)
+        wall = time.perf_counter() - t0
+        cell = dry
+        if record["status"] == "error":
+            check(record.get("error", "").startswith(("RuntimeError", "NotImplementedError", "AssertionError")),
+                  f"dry run {dry}: {record.get('error', '')[:1500]}")
+            out["dryrun_stopped"] = {"cell": list(dry), "op": record.get("op"), "torch": torch.__version__,
+                                     "error": record["error"][:300], "wall_s": wall}
+            print(f"parallel: dry run {dry[0]} x {dry[1]} stopped after {wall:.1f} s on an operation this torch's "
+                  f"DTensor ({torch.__version__}) has no sharding rule for: {record['error'][:200]}; "
+                  f"{DRY_RULES_FALLBACK} instead")
+            proc, path, t0 = dry_run_cell(*DRY_RULES_FALLBACK, tmp.name)
+            record = dry_run_record(proc, path, DRY_RULES_FALLBACK)
+            wall = time.perf_counter() - t0
+            cell = DRY_RULES_FALLBACK
+            check(record["status"] == "ok", f"dry run {cell}: {record.get('error', '')[:1500]}")
+        if wall > DRY_LIMIT_S:
+            print(f"parallel: dry run of {cell} took {wall:.1f} s, past {DRY_LIMIT_S:.0f} s: {DRY_FALLBACK} instead")
+            proc, path, t0 = dry_run_cell(*DRY_FALLBACK, tmp.name)
+            record = dry_run_record(proc, path, DRY_FALLBACK)
+            wall = time.perf_counter() - t0
+            cell = DRY_FALLBACK
+            check(record["status"] == "ok", f"dry run {cell}: {record.get('error', '')[:1500]}")
+        r = record["roofline"]
+        out["dryrun"] = {"cell": list(cell), "wall_s": wall, "step_s": record["step_s"], "chips": record["chips"],
+                         "memory_analysis": record["memory_analysis"],
+                         "roofline": {k: r[k] for k in ("flops_per_device", "bytes_per_device", "wire_bytes_per_device",
+                                                        "t_compute_s", "t_memory_s", "t_collective_s", "t_step_s",
+                                                        "bottleneck", "useful_flops_fraction", "mfu_bound",
+                                                        "model_flops")}}
+        print(f"parallel: dry run {cell[0]} x {cell[1]} on the single-pod mesh ({record['chips']} fake ranks, meta "
+              f"DTensors, no card) in {wall:.1f} s (the step {record['step_s']} s): flops/dev {r['flops_per_device']:.4g}, "
+              f"bytes/dev {r['bytes_per_device']:.4g}, wire/dev {r['wire_bytes_per_device']:.4g}; t_compute "
+              f"{r['t_compute_s'] * 1e3:.2f} ms, t_memory {r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+              f"{r['t_collective_s'] * 1e3:.2f} ms on H100 constants: {r['bottleneck']}-bound, MFU bound "
+              f"{r['mfu_bound']:.4f}")
+    tmp.cleanup()
+    r = out["nemotron"]["row"]
+    print(f"parallel: S1 and K4 on nemotron's sampled row ({r['n']} pads to {r['m']}; S1 at chunk {r['chunk']}, "
+          f"{r['rounds']} K4 rounds) bit-identical to their plain versions"
+          + ("" if not on_card else f"; S1 kernel_ms {r['s1']['ms']:.5f} plain_ms {r['s1']['plain_ms']:.5f} "
+             f"library_ms {r['s1']['library_ms']:.5f} bound_ms {r['s1']['bound_ms']:.6f}; K4 rounds kernel_ms "
+             f"{r['k4']['ms']:.5f} plain_ms {r['k4']['plain_ms']:.5f} library_ms {r['k4']['library_ms']:.5f} "
+             f"bound_ms {r['k4']['bound_ms']:.6f} (CUDA events)"))
+    return out
+
+
+def _named_leaves(tree, prefix: str = ""):
+    for k, v in tree.items():
+        yield from _named_leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+
 def ptxas_kernels(log: str) -> list:
     """``(kernel, its "Used" line, its spill line)`` for each kernel of a
     ``ptxas -v`` log (per kernel: its name, then spills, then registers)."""
@@ -4362,6 +4755,7 @@ def main() -> int:
     distributed = phase_distributed(card=card)
     runtime = phase_runtime(card=card)
     vlm_audio = phase_vlm_audio(card=card)
+    parallel = phase_parallel(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -4398,6 +4792,9 @@ def main() -> int:
             k["vlm_audio"] = {m: {"launches": vlm_audio[m][f"{part}_launches"],
                                   "max_abs_err": vlm_audio[m]["row"]["max_abs_err"], **vlm_audio[m]["row"][part]}
                               for m in ("paligemma", "whisper")}
+            nem = parallel["nemotron"]
+            k["parallel"] = {"nemotron": {"launches": nem[f"{part}_launches"], "max_abs_err": nem["row"]["max_abs_err"],
+                                          **nem["row"][part]}}
         if k["name"] in distributed:
             k["distributed"] = distributed[k["name"]]
     print("times: sort_round_kv's ms, plain_ms, library_ms and bound_ms are sums over the 6 wide rounds of one "
@@ -4442,9 +4839,12 @@ def main() -> int:
           "and sort_tiles_kv holds their numbers on phase 13's last sampled row of paligemma-3b (1, 257216) and the "
           "first of whisper-large-v3 (1, 51866), bfloat16 logits as int16 total-order keys with int32 indices: S1 one "
           "call at its chunk, K4 the sums over its 9 or 7 wide rounds, library_ms as in the moe object, launches "
-          "those of phase 13's sampling runs (one S1 and 9 or 7 K4 per sampled step)")
+          "those of phase 13's sampling runs (one S1 and 9 or 7 K4 per sampled step); the \"parallel\" object of "
+          "sort_round_kv and sort_tiles_kv holds their numbers on phase 14's last sampled row of nemotron-4-340b (1, "
+          "256000) the same way, launches those of its sampling run (one S1 and 9 K4 per token)")
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"vlm_audio": vlm_audio}))
+    print(json.dumps({"parallel": parallel}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

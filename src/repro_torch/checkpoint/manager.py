@@ -17,9 +17,9 @@ a checkpoint written by one package is restored by the other.
 * **async**: ``save(..., blocking=False)`` copies the state to host memory
   and writes it in a daemon thread while the loop keeps stepping.
 * **keep-N**: only the newest ``keep`` steps stay.
-
-The reference's elastic restore onto another mesh comes with the parallel
-slice; here :meth:`CheckpointManager.restore` puts the arrays on one device.
+* **elastic**: ``restore(..., shardings=...)`` distributes each leaf onto
+  any mesh (another rank count or layout than the writer's): the restart
+  path after losing hosts (:func:`repro_torch.runtime.plan_elastic_mesh`).
 """
 
 from __future__ import annotations
@@ -122,26 +122,39 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Dict, step: Optional[int] = None) -> Dict:
+    def restore(self, like: Dict, step: Optional[int] = None, shardings: Optional[Dict] = None) -> Dict:
         """A state in the layout of ``like`` (a dict tree of tensors) from
         step ``step`` (the newest by default), each leaf on the device of
-        ``like``'s.  Shapes must match; dtypes are the checkpoint's."""
+        ``like``'s.  Shapes must match; dtypes are the checkpoint's.
+
+        With ``shardings``, a tree in ``like``'s layout of ``(mesh,
+        placements)`` pairs (or :class:`repro_torch.parallel.sharding.NamedSharding`),
+        each leaf is instead a DTensor on its mesh, which may differ from
+        the writer's: every rank reads the whole array and keeps its own
+        shard, with no collective (the reference's ``device_put``)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         with np.load(os.path.join(self.dir, f"step_{step}", "arrays.npz")) as data:
 
-            def walk(node, prefix):
+            def walk(node, prefix, sh):
                 out = {}
                 for k, v in node.items():
                     key = f"{prefix}{k}"
                     if isinstance(v, dict):
-                        out[k] = walk(v, key + _SEP)
+                        out[k] = walk(v, key + _SEP, None if sh is None else sh[k])
                         continue
                     arr = data[key]
                     if tuple(arr.shape) != tuple(v.shape):
                         raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs state {tuple(v.shape)}")
-                    out[k] = torch.from_numpy(np.array(arr)).to(v.device)
+                    t = torch.from_numpy(np.array(arr))
+                    out[k] = t.to(v.device) if sh is None else _distribute(t, sh[k])
                 return out
 
-            return walk(like, "")
+            def _distribute(t, sharding):
+                from torch.distributed.tensor import distribute_tensor
+
+                mesh, placements = sharding[0], sharding[1]
+                return distribute_tensor(t.to(mesh.device_type), mesh, placements, src_data_rank=None)
+
+            return walk(like, "", shardings)

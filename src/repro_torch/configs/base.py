@@ -216,8 +216,7 @@ class TrainConfig:
     grad_clip: float = 1.0
     z_loss: float = 1e-4
     microbatch: int = 0  # 0 = no gradient accumulation
-    # gradient compression for the cross-pod all-reduce; the port takes
-    # "none" only until the parallel slice ports it
+    # gradient compression with error feedback (repro_torch.parallel.compression)
     grad_compression: str = "none"  # none | topk | int8
     compression_topk: float = 0.01
     checkpoint_every: int = 50

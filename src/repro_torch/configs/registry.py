@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Every family of the reference is registered: dense, SSM, hybrid, MoE,
-VLM and audio.  nemotron-4-340b comes with the parallel slice (see
-ROADMAP.md).
+Every architecture of the reference is registered, in every family:
+dense, SSM, hybrid, MoE, VLM and audio.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from . import (
     gemma3_12b,
     hymba_1_5b,
     moonshot_v1_16b_a3b,
+    nemotron_4_340b,
     paligemma_3b,
     phi35_moe_42b_a6_6b,
     tinyllama_1_1b,
@@ -22,8 +22,8 @@ from . import (
 )
 from .base import ModelConfig
 
-_MODULES = (hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b, gemma3_12b, falcon_mamba_7b,
-            paligemma_3b, whisper_large_v3)
+_MODULES = (hymba_1_5b, moonshot_v1_16b_a3b, phi35_moe_42b_a6_6b, tinyllama_1_1b, yi_6b, gemma3_12b, nemotron_4_340b,
+            falcon_mamba_7b, paligemma_3b, whisper_large_v3)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
@@ -35,6 +35,7 @@ ALIASES = {
     "tinyllama": "tinyllama-1.1b",
     "yi": "yi-6b",
     "gemma3": "gemma3-12b",
+    "nemotron": "nemotron-4-340b",
     "falcon-mamba": "falcon-mamba-7b",
     "paligemma": "paligemma-3b",
     "whisper": "whisper-large-v3",

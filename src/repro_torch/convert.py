@@ -54,8 +54,9 @@ def from_jax_train_state(
     cfg: ModelConfig, tree: Dict[str, Any], device: Optional[Union[str, torch.device]] = None
 ) -> Dict[str, Any]:
     """The reference's train state (numpy leaves: ``step``, the float32
-    masters ``params`` and the moments ``opt["m"]``, ``opt["v"]``) as the
-    port's, on ``device``, ready for ``make_train_step``."""
+    masters ``params`` and the moments ``opt["m"]``, ``opt["v"]``, and the
+    compression's error state ``err`` when it has one) as the port's, on
+    ``device``, ready for ``make_train_step``."""
     dev = resolve_device(device)
     params = from_jax_params(cfg, tree["params"], device=dev)
 
@@ -66,7 +67,10 @@ def from_jax_train_state(
 
     opt = {name: walk(tree["opt"][name], params) for name in ("m", "v")}
     step = torch.tensor(np.array(tree["step"]), dtype=torch.int32).reshape(()).to(dev)
-    return {"step": step, "params": params, "opt": opt}
+    state = {"step": step, "params": params, "opt": opt}
+    if "err" in tree:
+        state["err"] = walk(tree["err"], params)
+    return state
 
 
 def to_numpy(tree: Any) -> Any:

@@ -13,8 +13,9 @@ tokens alone, so paligemma trains without its prefix and
 whisper-large-v3, which needs frames, does not train here), with Mamba heads on the fused selective scan (K9
 forward, K10 backward) and MoE routing on the kernel sort
 (``moe_dispatch="merge_path_pallas"``: S1 and K4), on the card unless
-``--device cpu``.  Gradient compression (``--grad-compression``) comes
-with the parallel slice.
+``--device cpu``.  ``--grad-compression topk`` or ``int8`` compresses
+the gradients with error feedback; the error state is checkpointed with
+the rest of the state.
 Checkpoints go to ``build/train_ckpt`` under the checkout unless
 ``--ckpt-dir`` names another directory.
 """
@@ -47,7 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--no-reduced", dest="reduced", action="store_false")
     ap.add_argument("--microbatch", type=int, default=0)
-    ap.add_argument("--grad-compression", default="none", choices=["none"])
+    ap.add_argument("--grad-compression", default="none", choices=["none", "topk", "int8"])
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")

@@ -12,7 +12,9 @@ The decode cache is updated in place, where the reference returns a new
 array: the caller's cache tensors are the state.  Cross-attention
 (``attention(kv=...)`` over a whole sequence, :func:`cross_decode_attention`
 for one token) reads keys and values precomputed from the encoder's
-output, with no rotary embedding and no mask.
+output, with no rotary embedding and no mask.  The activations pass
+through :func:`~repro_torch.parallel.sharding.constrain` where the
+reference constrains them (a no-op outside a sharding env).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain
+
 from .layers import apply_rope, make_rope
 
 NEG_INF = -1e30
@@ -32,9 +36,13 @@ FULL_ATTENTION_THRESHOLD = 8192
 def qkv_proj(params: Dict, x: torch.Tensor, num_heads: int, num_kv: int, head_dim: int):
     """``x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd)``."""
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, s, num_kv, head_dim)
-    v = (x @ params["wv"]).reshape(b, s, num_kv, head_dim)
+    # Each product is laid out before its split into heads, replicated over the tensor axis, as the reference
+    # lays out k and v (it shards q's heads).  A DTensor sharded over the heads cannot split them into (kv heads,
+    # group) where the tensor axis does not divide them evenly, nor can the attention's einsums merge a sharded
+    # dimension into an outer one (torch 2.11), so the attention core is replicated over the tensor axis.
+    q = constrain(x @ params["wq"], "act_batch", "act_seq", None).reshape(b, s, num_heads, head_dim)
+    k = constrain(x @ params["wk"], "act_batch", "act_seq", None).reshape(b, s, num_kv, head_dim)
+    v = constrain(x @ params["wv"], "act_batch", "act_seq", None).reshape(b, s, num_kv, head_dim)
     return q, k, v
 
 
@@ -131,13 +139,14 @@ def attention(
     if kv is not None:
         b, s, _ = x.shape
         k, v = kv
-        q = (x @ params["wq"]).reshape(b, s, num_kv, num_heads // num_kv, head_dim)
+        q = constrain(x @ params["wq"], "act_batch", "act_seq", None).reshape(b, s, num_kv, num_heads // num_kv,
+                                                                             head_dim)
         kpos = torch.arange(k.shape[1], device=x.device)
         if k.shape[1] <= FULL_ATTENTION_THRESHOLD and not force_blockwise:
             out = _sdpa(q, k, v, _mask(positions, kpos, "full", window, prefix_len), softcap)
         else:
             out = _blockwise(q, k, v, positions, "full", window, prefix_len, chunk, softcap)
-        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+        return constrain(out.reshape(b, s, num_heads * head_dim), "act_batch", "act_seq", "act_heads") @ params["wo"]
     return self_attention(
         params, x, num_heads=num_heads, num_kv=num_kv, head_dim=head_dim, rope_theta=rope_theta,
         positions=positions, kind=kind, window=window, prefix_len=prefix_len, chunk=chunk, softcap=softcap,
@@ -162,7 +171,8 @@ def self_attention(params: Dict, x: torch.Tensor, *, num_heads: int, num_kv: int
         out = _sdpa(qh, k, v, _mask(positions, positions, kind, window, prefix_len), softcap)
     else:
         out = _blockwise(qh, k, v, positions, kind, window, prefix_len, chunk, softcap)
-    return out.reshape(b, s, num_heads * head_dim) @ params["wo"], k, v
+    out = constrain(out.reshape(b, s, num_heads * head_dim), "act_batch", "act_seq", "act_heads")
+    return out @ params["wo"], k, v
 
 
 def decode_attention(
@@ -183,9 +193,8 @@ def decode_attention(
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     g = num_heads // num_kv
-    q = (x @ params["wq"]).reshape(b, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, num_kv, head_dim)
-    v = (x @ params["wv"]).reshape(b, num_kv, head_dim)
+    q, k, v = (constrain(x @ params[w], "act_batch", None, None).reshape(b, n, head_dim)
+               for w, n in (("wq", num_heads), ("wk", num_kv), ("wv", num_kv)))
     if rope_theta > 0:
         sin, cos = make_rope(pos[:, None], head_dim, rope_theta)  # (B, 1, half)
         q = apply_rope(q.reshape(b, 1, num_heads, head_dim), sin, cos).reshape(b, num_heads, head_dim)
@@ -195,6 +204,8 @@ def decode_attention(
     bidx = torch.arange(b, device=x.device)
     cache_k[bidx, slot] = k.to(cache_k.dtype)
     cache_v[bidx, slot] = v.to(cache_v.dtype)
+    cache_k = constrain(cache_k, "act_batch", "act_kv_seq", None, None)
+    cache_v = constrain(cache_v, "act_batch", "act_kv_seq", None, None)
     # absolute position held by each cache slot
     ridx = torch.arange(s_cache, device=x.device)[None, :]
     if window > 0:

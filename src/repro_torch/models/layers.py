@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.parallel.sharding import constrain
+
 
 def profiler_range(name: str):
     """A profiler range while ``torch.profiler`` records (so that
@@ -98,7 +100,7 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     with profiler_range("model.mlp"):
         up = x @ params["wi"]
         gate = x @ params["wg"] if "wg" in params else None
-        return _act(act, gate, up) @ params["wo"]
+        return constrain(_act(act, gate, up), "act_batch", "act_seq", "act_ff") @ params["wo"]
 
 
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:

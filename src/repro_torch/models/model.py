@@ -26,6 +26,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import AUDIO, HYBRID, SSM, VLM, ModelConfig
+from repro_torch.parallel.sharding import constrain
 
 from . import attention as attn_mod
 from . import ssm as ssm_mod
@@ -40,14 +41,14 @@ __all__ = ["init_params", "abstract_params", "init_caches", "abstract_caches", "
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"]["table"][tokens.long()]
     # the scale is rounded to the activation dtype first, as in the reference
-    return x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype, device=x.device))
+    return constrain(x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype, device=x.device)),
+                     "act_batch", "act_seq", "act_embed")
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return x @ params["unembed"]
+    logits = x @ params["embed"]["table"].T if cfg.tie_embeddings else x @ params["unembed"]
+    return constrain(logits, "act_batch", "act_seq", "act_vocab")
 
 
 def init_caches(

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import max_sentinel, merge_sort_kv_batched, merge_sort_kv_batched_ragged, searchsorted_batched
 from repro_torch.core.batched import _mask_rows
+from repro_torch.parallel.sharding import constrain
 
 from .layers import dense_init, mlp_init
 from .layers import profiler_range as _range
@@ -218,11 +219,11 @@ def moe_apply(
     with _range("moe.dispatch"):
         # (B, E, cap + 1, d): the kept (expert, position) pairs are unique; every dropped slot lands on row `cap`
         buf = x.new_zeros((b, e, cap + 1, d)).index_put((rows, fe, torch.where(kept, pos, cap).long()), x[:, tok])
-        buf = buf[:, :, :cap]
+        buf = constrain(buf[:, :, :cap], "act_batch", "act_experts", None, None)
     with _range("moe.experts"):
         up = torch.einsum("becd,edf->becf", buf, params["wi"])
         gate = torch.einsum("becd,edf->becf", buf, params["wg"])
-        h = _silu(gate) * up
+        h = constrain(_silu(gate) * up, "act_batch", "act_experts", None, None)
         out_buf = torch.einsum("becf,efd->becd", h, params["wo"])  # (B, E, cap, d)
     with _range("moe.combine"):
         vals = out_buf[rows, fe, torch.clamp(pos, max=cap - 1).long()].reshape(b, s, k, d)

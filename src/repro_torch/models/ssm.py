@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.parallel.sharding import constrain
 
 from .layers import dense_init
 
@@ -141,13 +142,15 @@ def mamba_block(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.
     """The block over a whole sequence: ``(out (B, S, d), xin (B, S, di),
     h_final (B, di, st) float32)``, ``xin`` being the conv's input, from
     which a caller that decodes on takes its conv state."""
-    xin, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+    xz = constrain(x @ params["in_proj"], "act_batch", "act_seq", "act_ff")
+    xin, z = torch.chunk(xz, 2, dim=-1)
     xc, _ = _causal_conv(xin, params["conv_w"], None)
     xc = F.silu(xc)
     dt, bmat, cmat, a = _project(params, xc, cfg)
     y, h_final = ssm_apply(dt, xc, bmat, cmat, a, cfg)
     y = (y + params["D"][None, None] * xc.float()).to(x.dtype)
-    return (y * F.silu(z)) @ params["out_proj"], xin, h_final
+    y = constrain(y * F.silu(z), "act_batch", "act_seq", "act_ff")
+    return y @ params["out_proj"], xin, h_final
 
 
 def mamba_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

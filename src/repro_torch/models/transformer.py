@@ -210,9 +210,11 @@ def _ring(t: torch.Tensor, positions: torch.Tensor, window: int, cache_len: int)
     b, s, kv, hd = t.shape
     clen = min(cache_len, window) if window > 0 else cache_len
     take = min(s, clen)
-    out = torch.zeros((b, clen, kv, hd), dtype=t.dtype, device=t.device)
-    out[:, positions[-take:] % max(clen, 1)] = t[:, -take:]
-    return out
+    # an out-of-place scatter along the positions (an expanded index: nothing materialized), which DTensor
+    # takes where it has no rule for the indexed write `out[:, slots] = ...` nor for an in-place scatter (torch
+    # 2.11); the same copies
+    slots = (positions[-take:] % max(clen, 1)).view(1, take, 1, 1).expand(b, take, kv, hd)
+    return t.new_zeros((b, clen, kv, hd)).scatter(1, slots, t[:, -take:])
 
 
 def _mamba_with_state(p: Dict, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

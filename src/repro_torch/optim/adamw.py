@@ -12,9 +12,9 @@ One difference of form: :func:`clip_by_global_norm` and
 place and return them, where the reference builds new trees.  At the
 full width of falcon-mamba-7b a second copy of the masters and moments
 would not fit beside the first; the reference's launcher donates the old
-state, so nothing there sees the old values either.  The gradient
-compression of the reference (``grad_compression``) comes with the
-parallel slice.
+state, so nothing there sees the old values either.  Gradient
+compression, when the train step has it, runs before :func:`adamw_update`
+(:mod:`repro_torch.parallel.compression`).
 """
 
 from __future__ import annotations

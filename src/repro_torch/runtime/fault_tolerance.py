@@ -1,16 +1,45 @@
-"""Fault tolerance of the train loop: straggler watch, restart on failure.
+"""Fault tolerance: heartbeat failure detection, straggler watch, elastic
+remesh plan, restart on failure.
 
-The port's own copy of the two parts of the reference's
-``repro/runtime/fault_tolerance.py`` that its launcher uses; the heartbeat
-monitor and the elastic mesh plan come with the parallel slice.  The logic
-is host-side; step times are read on the port's own clock
-(:func:`repro_torch.telemetry.wall_seconds`).
+The port's own copy of the reference's ``repro/runtime/fault_tolerance.py``.
+The logic is host-side and is tested with simulated clocks and failures;
+times are read on the port's own clock
+(:func:`repro_torch.telemetry.wall_seconds`).  After a loss of hosts,
+:func:`plan_elastic_mesh` gives the mesh to rebuild and
+:meth:`repro_torch.checkpoint.CheckpointManager.restore` with ``shardings=``
+puts the checkpoint onto it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+import math
+from typing import Callable, List, Tuple
+
+from repro_torch.telemetry import wall_seconds
+
+
+@dataclasses.dataclass
+class HeartbeatMonitor:
+    """Declares a host dead after ``timeout`` seconds of silence."""
+
+    num_hosts: int
+    timeout: float = 60.0
+    clock: Callable[[], float] = wall_seconds
+
+    def __post_init__(self):
+        now = self.clock()
+        self.last_seen = {h: now for h in range(self.num_hosts)}
+
+    def beat(self, host: int) -> None:
+        self.last_seen[host] = self.clock()
+
+    def dead_hosts(self) -> List[int]:
+        now = self.clock()
+        return [h for h, t in self.last_seen.items() if now - t > self.timeout]
+
+    def healthy(self) -> bool:
+        return not self.dead_hosts()
 
 
 @dataclasses.dataclass
@@ -41,6 +70,31 @@ class StragglerMonitor:
 
     def should_remesh(self) -> bool:
         return self.flags >= self.patience
+
+
+def plan_elastic_mesh(
+    available_chips: int,
+    model_parallel: int,
+    prefer_pods: bool = True,
+    chips_per_pod: int = 256,
+) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """Largest usable ``(pod, data, model)`` mesh shape and its dimension
+    names from the surviving chips.
+
+    Keeps the tensor-parallel degree fixed (the parameters' placements stay
+    valid) and shrinks the data and pod dimensions; the restore then
+    distributes the checkpoint onto the new mesh.
+    """
+    if available_chips < model_parallel:
+        raise ValueError(f"need >= {model_parallel} chips, have {available_chips}")
+    pods = available_chips // chips_per_pod
+    if prefer_pods and pods >= 2:
+        data = chips_per_pod // model_parallel
+        return (pods, data, model_parallel), ("pod", "data", "model")
+    data = available_chips // model_parallel
+    # the largest power-of-two data degree keeps batch divisibility simple
+    data = 1 << int(math.log2(data))
+    return (data, model_parallel), ("data", "model")
 
 
 @dataclasses.dataclass

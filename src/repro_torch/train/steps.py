@@ -3,9 +3,12 @@
 ``make_train_step(cfg, tcfg)`` returns ``(state, batch) -> (state,
 metrics)``: the loss (:func:`cross_entropy_loss`), its gradient by
 autograd (through K9 and K10 with ``ssm_backend="fused"``), optionally
-accumulated over microbatches, and the AdamW update.  The state is the
-reference's: ``{"step", "params", "opt": {"m", "v"}}`` with float32
-masters and moments (:func:`init_train_state`).  ``make_prefill_step(cfg)``
+accumulated over microbatches, optionally compressed with error feedback
+(``tcfg.grad_compression``: :mod:`repro_torch.parallel.compression`), and
+the AdamW update.  The state is the reference's: ``{"step", "params",
+"opt": {"m", "v"}}`` with float32 masters and moments, and ``"err"``, the
+compression's float32 error state, when ``grad_compression != "none"``
+(:func:`init_train_state`).  ``make_prefill_step(cfg)``
 and ``make_decode_step(cfg)`` return the serve steps that the reference's
 dry run lowers for its ``prefill`` and ``decode`` shapes
 (:func:`abstract_train_state` is the train state as meta tensors).  Every step
@@ -27,12 +30,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import abstract_params, forward_decode, forward_prefill, forward_train, init_params
 from repro_torch.models.transformer import _dtype
 from repro_torch.optim.adamw import adamw_update, init_opt_state, tree_leaves
-
-
-def _check_compression(tcfg: TrainConfig) -> None:
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} is ported with the parallel slice, see ROADMAP.md")
+from repro_torch.parallel import compression
 
 
 def _rebuild(tree, leaves) -> Dict:
@@ -54,8 +52,10 @@ def cross_entropy_loss(
     labels = torch.as_tensor(labels, device=logits.device)
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    ce = (lse - gold) * mask
+    # the difference before the last axis is dropped: on a vocab-sharded DTensor the gather is a masked partial
+    # whose mask keeps the gather's shape
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])
+    ce = (lse[..., None] - gold)[..., 0] * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / denom
     zl = z_loss * torch.sum(torch.square(lse) * mask) / denom
@@ -65,24 +65,25 @@ def cross_entropy_loss(
 def init_train_state(
     cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0, device: Optional[Union[str, torch.device]] = None
 ) -> Dict[str, Any]:
-    """``{"step": int32 0, "params": float32 masters, "opt": {"m", "v"}}`` on
-    ``device`` (the card by default), the parameters from :func:`init_params`
-    at ``seed``."""
-    _check_compression(tcfg)
-    return _train_state(init_params(cfg, seed=seed, device=resolve_device(device)))
+    """``{"step": int32 0, "params": float32 masters, "opt": {"m", "v"}}``
+    (and ``"err"``, zeros, with gradient compression) on ``device`` (the
+    card by default), the parameters from :func:`init_params` at ``seed``."""
+    return _train_state(tcfg, init_params(cfg, seed=seed, device=resolve_device(device)))
 
 
 def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> Dict[str, Any]:
     """:func:`init_train_state`'s tree as meta tensors: shapes and dtypes,
     nothing allocated (the dry run's train state)."""
-    _check_compression(tcfg)
-    return _train_state(abstract_params(cfg))
+    return _train_state(tcfg, abstract_params(cfg))
 
 
-def _train_state(params: Dict) -> Dict[str, Any]:
+def _train_state(tcfg: TrainConfig, params: Dict) -> Dict[str, Any]:
     params = _rebuild(params, [p.float() for p in tree_leaves(params)])
     step = torch.zeros((), dtype=torch.int32, device=params["final_norm"].device)
-    return {"step": step, "params": params, "opt": init_opt_state(params)}
+    state = {"step": step, "params": params, "opt": init_opt_state(params)}
+    if tcfg.grad_compression != "none":
+        state["err"] = compression.init_error_state(params)
+    return state
 
 
 def _cast(params: Dict, dtype: torch.dtype) -> Dict:
@@ -122,9 +123,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     ``loss``, ``grad_norm`` and ``lr`` only, as there.  Otherwise they also
     hold ``ce`` and ``z_loss``.  The returned state holds the same tensors
     as the one passed in, updated in place (see :mod:`repro_torch.optim.adamw`),
-    its ``step`` one more.
+    its ``step`` one more.  With ``tcfg.grad_compression`` the gradients
+    are compressed before the update and the new error state replaces
+    ``"err"``, as in the reference.
     """
-    _check_compression(tcfg)
 
     def grads_of(params: Dict, batch: Dict):
         if tcfg.microbatch and tcfg.microbatch > 1:
@@ -146,8 +148,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         dev = state["step"].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         loss, metrics, grads = grads_of(state["params"], batch)
-        params, opt, opt_metrics = adamw_update(tcfg, state["params"], grads, state["opt"], state["step"])
         new_state = dict(state)
+        if tcfg.grad_compression != "none":
+            grads, new_state["err"] = compression.compress_grads(grads, state["err"], tcfg.grad_compression,
+                                                                 tcfg.compression_topk)
+        params, opt, opt_metrics = adamw_update(tcfg, state["params"], grads, state["opt"], state["step"])
         new_state.update(step=state["step"] + 1, params=params, opt=opt)
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 

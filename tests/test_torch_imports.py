@@ -39,6 +39,11 @@ RUNTIME_MODULES = {"repro_torch.runtime.resilience", "repro_torch.runtime.faults
                    "repro_torch.telemetry.__main__", "repro_torch.telemetry.smoke"}
 # the VLM and audio slice's config modules
 VLM_AUDIO_MODULES = {"repro_torch.configs.paligemma_3b", "repro_torch.configs.whisper_large_v3"}
+# the parallel slice's modules
+PARALLEL_MODULES = {"repro_torch.configs.nemotron_4_340b", "repro_torch.parallel", "repro_torch.parallel.sharding",
+                    "repro_torch.parallel.compression", "repro_torch.serving.context_parallel",
+                    "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                    "repro_torch.launch.roofline"}
 
 
 def _forbidden(module: str) -> bool:
@@ -51,11 +56,12 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 59  # every module was walked
+    assert int(count) >= 68  # every module was walked
     assert TRAIN_MODULES <= set(names.split(","))
     assert DIST_MODULES <= set(names.split(","))
     assert RUNTIME_MODULES <= set(names.split(","))
     assert VLM_AUDIO_MODULES <= set(names.split(","))
+    assert PARALLEL_MODULES <= set(names.split(","))
     assert bad == "[]"
 
 

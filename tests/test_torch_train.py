@@ -305,13 +305,16 @@ def test_layer_gradients_are_stacked_once():
 
 
 def test_paths_the_slice_leaves_out_raise():
+    # every compression of the reference is ported; a method it does not know raises
     cfg, _ = _cfgs("fused")
-    for fn in (lambda: make_train_step(cfg, TrainConfig(grad_compression="int8")),
-               lambda: init_train_state(cfg, TrainConfig(grad_compression="topk"), device="cpu")):
-        with pytest.raises(NotImplementedError, match="grad_compression"):
-            fn()
+    state = init_train_state(cfg, TrainConfig(grad_compression="topk"), device="cpu")
+    assert set(state) == {"step", "params", "opt", "err"}
+    step = make_train_step(cfg, TrainConfig(grad_compression="fp8"))
+    batch = {"tokens": np.ones((1, 8), np.int32), "labels": np.ones((1, 8), np.int32)}
+    with pytest.raises(ValueError, match="grad_compression"):
+        step(dict(state), batch)
     with pytest.raises(SystemExit):
-        launch_train.main(["--grad-compression", "int8", "--device", "cpu"])
+        launch_train.main(["--grad-compression", "fp8", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
