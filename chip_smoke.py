@@ -144,7 +144,16 @@ Phases (any failure raises, and the script exits non-zero):
     524288 positions, sharded and over NCCL at world size 1, against dense
     attention; one dry-run cell on the single-pod mesh of fake ranks in a
     process of its own; its numbers on a line of their own;
-15. the ``kernels`` line, the card line and the result line.
+15. the kernel checker and the autotuner (:func:`phase_analysis`):
+    ``analysis.check_kernels`` on the card over the whole lattice with
+    every launch count set to 0 first (0 violations, every kernel
+    launched); at every trace point the wrapper calls the ops make equal
+    to the checker's launch model and each equal to its plain version;
+    A005's shared-memory model equal to each source's
+    ``<kernel>_smem_bytes`` at every launch of the lattice, static plus
+    dynamic within 227 KB; ``tune.build_table()`` and ``tune.autotune``
+    of 2^24 int32 keys; its numbers on a line of their own;
+16. the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -4631,6 +4640,116 @@ def phase_parallel(device: str = "cuda", reduce: bool = False, card: str = "cpu"
     return out
 
 
+TUNE_SIZES = (1 << 12, 1 << 15, 1 << 18)  # tune.build_table's grid, the reference's
+TUNE_N = 1 << 24  # the sort the phases above time
+TUNE_ITERS = 10  # timed calls a candidate, after one warm-up
+
+
+def _plain_of(call) -> tuple:
+    """A wrapper call's plain version on the same inputs, as a tuple."""
+    kernel, args, kwargs = call.launch.kernel, call.args, call.kwargs
+    if kernel.startswith("sort_round"):
+        out = call.ref(*args, tile=kwargs["tile"])
+    elif kernel == "ssm_scan":  # _forward(dt, x, bmat, cmat, a, chunk, checkpoints)
+        out = call.ref(*args[:5], chunk=args[5], checkpoints=args[6])
+    elif kernel == "ssm_scan_bwd":
+        out = call.ref(*args, **kwargs)
+    else:
+        out = call.ref(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_analysis(device: str = "cuda", card: str = "cpu") -> dict:
+    """Phase 15: the kernel checker and the autotuner on the card.
+
+    (a) ``analysis.check_kernels`` on the whole lattice with every launch
+    count set to 0 first: no violation, and on the card every kernel
+    (K1-K10 and S1, keys alone and with values) launched at least once;
+    (b) at every trace point, the wrapper calls the op really makes equal
+    the checker's launch model (``kernel_launches``), and each call's
+    output equals its plain version on the same inputs (the merge-path
+    kernels bit for bit, K9 within ``SCAN_RTOL`` and K10 within
+    ``BWD_RTOL`` of the largest element); (c) on the card, every launch of
+    the lattice (and K9 and K10 at each state width and dtype they take):
+    the checker's shared-memory model equal to what the source's
+    ``<kernel>_smem_bytes`` says the launch requests, and static plus
+    dynamic shared memory within the budget; (d) ``tune.build_table()``
+    over :data:`TUNE_SIZES` and ``tune.autotune`` of :data:`TUNE_N` int32
+    keys, :data:`TUNE_ITERS` timed calls each, printed with the card's
+    name and power limit.  ``compute-sanitizer`` is not run (its
+    memcheck does not work on the card's machine: PERF.md)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.analysis import checker as ck
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.kernels import tune
+
+    on_card = device == "cuda"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    violations = ck.check_kernels(device=device)
+    seconds = time.perf_counter() - t0
+    check(not violations, "analysis: " + "; ".join(map(str, violations[:10])))
+    launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
+    if on_card:
+        check(min(launches.values()) >= 1, f"analysis: a kernel was not launched by the checker: {launches}")
+    else:
+        check(sum(launches.values()) == 0, f"analysis: the CPU run launched kernels: {launches}")
+    print(f"analysis: {len(ck.registered_contracts())} contracts, 0 violations on the full lattice in {seconds:.2f} s "
+          f"on {device}; launches {launches}")
+
+    # (b) the launch model and the plain versions, point by point
+    calls_checked, max_err = 0, {"merge_path": 0, "ssm_scan": 0.0, "ssm_scan_bwd": 0.0}
+    for point in ck.launch_model_calls(device=device):
+        for c in point.calls:
+            what = f"analysis {c.launch.kernel} {c.launch.dims} ({point.contract.name}, {point.cfg.describe()})"
+            with torch.no_grad():
+                plain = _plain_of(c)
+            got = c.out if isinstance(c.out, tuple) else (c.out,)
+            for g, w in zip((t.detach() for t in got), plain):
+                if c.launch.kernel == "ssm_scan":
+                    max_err["ssm_scan"] = max(max_err["ssm_scan"], scan_err(g, w, what))
+                elif c.launch.kernel == "ssm_scan_bwd":
+                    max_err["ssm_scan_bwd"] = max(max_err["ssm_scan_bwd"], scan_err(g, w, what, BWD_RTOL, 0.0))
+                else:
+                    max_err["merge_path"] = max(max_err["merge_path"], bit_err(g, w, what))
+            calls_checked += 1
+    print(f"analysis: {calls_checked} wrapper calls at the trace points equal to the launch model and to their plain "
+          f"versions (max abs err: merge-path bits {max_err['merge_path']}, K9 {max_err['ssm_scan']:.3g}, K10 "
+          f"{max_err['ssm_scan_bwd']:.3g})")
+
+    # (c) the shared-memory model against each source's request
+    smem = {"checked": 0, "max_dynamic": 0, "max_total": 0}
+    if on_card:
+        budget = ck.SMEM_BUDGET_BYTES["h100"]
+        # and K9 and K10 at each state width they take, in both dtypes (the lattice has float32 at 8)
+        extra = [ck.Launch(k, dt, (1, 64, 64, st) + ((0,) if k == "ssm_scan" else ()))
+                 for k in ("ssm_scan", "ssm_scan_bwd") for dt in ("float32", "bfloat16") for st in sc.STATES]
+        for launch in ck.all_launches() + extra:
+            model = ck.launch_smem(launch)
+            dyn, static = ck.source_smem(launch)
+            check(model == dyn, f"analysis: {launch.kernel} {launch.key} {launch.dims}: the checker models {model} B "
+                                f"of shared memory, the source requests {dyn} B")
+            check(dyn + static <= budget, f"analysis: {launch.kernel} {launch.dims}: {static} B static + {dyn} B "
+                                          f"dynamic shared memory exceed {budget} B")
+            smem["checked"] += 1
+            smem["max_dynamic"] = max(smem["max_dynamic"], dyn)
+            smem["max_total"] = max(smem["max_total"], dyn + static)
+        print(f"analysis: A005's model equal to the sources' requests at {smem['checked']} launches; largest dynamic "
+              f"{smem['max_dynamic']} B, static + dynamic {smem['max_total']} B of {budget} B")
+
+    # (d) the autotuner
+    table = tune.build_table(sizes=TUNE_SIZES, iters=TUNE_ITERS, update_table=False, device=device)
+    best = tune.autotune(TUNE_N, torch.int32, iters=TUNE_ITERS, update_table=False, device=device)
+    kernels.reset_launches()
+    print(f"tune: table measured on {card}: {dict(sorted(table.items()))}; autotune({TUNE_N}, int32) -> {best}")
+    return {"contracts": len(ck.registered_contracts()), "violations": len(violations), "device": device,
+            "check_s": seconds, "launches": launches, "calls_checked": calls_checked, "max_abs_err": max_err,
+            "smem": smem, "table": {f"{k[0]}{k[1]}": list(v) for k, v in sorted(table.items())},
+            "autotune": {"n": TUNE_N, "dtype": "int32", "best": list(best)}, "card": card}
+
+
 def _named_leaves(tree, prefix: str = ""):
     for k, v in tree.items():
         yield from _named_leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
@@ -4756,6 +4875,7 @@ def main() -> int:
     runtime = phase_runtime(card=card)
     vlm_audio = phase_vlm_audio(card=card)
     parallel = phase_parallel(card=card)
+    analysis = phase_analysis(card=card)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": f"{REPLACES}:{replaces}",
@@ -4845,6 +4965,7 @@ def main() -> int:
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"vlm_audio": vlm_audio}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"analysis": analysis}))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the DTensor test
+that the core code and the parallel layer share."""
 
 from __future__ import annotations
+
+import sys
 
 from typing import Optional, Union
 
@@ -21,3 +24,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing the DTensor package)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

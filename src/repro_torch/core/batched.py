@@ -21,6 +21,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch._device import is_dtensor
+
 from .merge_path import (
     bisect,
     bisect_steps,
@@ -55,6 +57,21 @@ __all__ = [
 ]
 
 Runs = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _scatter_rows(out: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out.scatter_(1, index, src)``, in place on plain tensors; out of
+    place when the operands are DTensors (the dry run), since ``out``, a
+    fresh buffer, is then a plain tensor, which DTensor refuses to write
+    sharded results into in place."""
+    if is_dtensor(src) or is_dtensor(index):
+        return out.scatter(1, index, src)
+    return out.scatter_(1, index, src)
+
+
+def _scatter2(out: torch.Tensor, ia: torch.Tensor, a: torch.Tensor, ib: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``out`` with ``a`` scattered to ``ia`` and ``b`` to ``ib`` along dim 1 (:func:`_scatter_rows`)."""
+    return _scatter_rows(_scatter_rows(out, ia, a), ib, b)
 
 
 def searchsorted_batched(sorted_rows: torch.Tensor, queries: torch.Tensor, side: str = "left") -> torch.Tensor:
@@ -181,7 +198,7 @@ def merge_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.to(dtype), b.to(dtype)
     ia, ib = _batched_ranks(a, b)
     out = torch.empty((a.shape[0], a.shape[1] + b.shape[1]), dtype=dtype, device=a.device)
-    return out.scatter_(1, ia, a).scatter_(1, ib, b)
+    return _scatter2(out, ia, a, ib, b)
 
 
 def merge_kv_batched(
@@ -200,10 +217,9 @@ def merge_kv_batched(
     ak, bk = ak.to(kd), bk.to(kd)
     ia, ib = _batched_ranks(ak, bk)
     keys = torch.empty((bsz, na + nb), dtype=kd, device=ak.device)
-    keys.scatter_(1, ia, ak).scatter_(1, ib, bk)
+    keys = _scatter2(keys, ia, ak, ib, bk)
     vals = torch.empty((bsz, na + nb), dtype=vd, device=ak.device)
-    vals.scatter_(1, ia, av.to(vd)).scatter_(1, ib, bv.to(vd))
-    return keys, vals
+    return keys, _scatter2(vals, ia, av.to(vd), ib, bv.to(vd))
 
 
 def _pad_rows_pow2(x: torch.Tensor, fill) -> torch.Tensor:
@@ -366,7 +382,7 @@ def merge_batched_ragged(a: torch.Tensor, b: torch.Tensor, a_lens, b_lens) -> to
     ra, rb = _ragged_ranks(am, bm, a_lens, b_lens)
     n = am.shape[1] + bm.shape[1]
     out = torch.full((am.shape[0], n + 1), max_sentinel(am.dtype), dtype=am.dtype, device=am.device)
-    return out.scatter_(1, ra, am).scatter_(1, rb, bm)[:, :n]  # column n takes the pads
+    return _scatter2(out, ra, am, rb, bm)[:, :n]  # column n takes the pads
 
 
 def merge_kv_batched_ragged(
@@ -388,9 +404,8 @@ def merge_kv_batched_ragged(
     bsz, n = akm.shape[0], akm.shape[1] + bkm.shape[1]
     vd = result_type(av.dtype, bv.dtype)
     keys = torch.full((bsz, n + 1), max_sentinel(akm.dtype), dtype=akm.dtype, device=akm.device)
-    keys.scatter_(1, ra, akm).scatter_(1, rb, bkm)
-    vals = torch.zeros((bsz, n + 1), dtype=vd, device=akm.device)
-    vals.scatter_(1, ra, av.to(vd)).scatter_(1, rb, bv.to(vd))
+    keys = _scatter2(keys, ra, akm, rb, bkm)
+    vals = _scatter2(torch.zeros((bsz, n + 1), dtype=vd, device=akm.device), ra, av.to(vd), rb, bv.to(vd))
     return keys[:, :n], vals[:, :n]
 
 

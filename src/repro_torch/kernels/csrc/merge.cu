@@ -168,14 +168,21 @@ __global__ void __launch_bounds__(kThreads<kValues>)
   if (kValues) repro::store_span(ov + o0, sv, n);
 }
 
+// The dynamic shared memory of one block that merges `span` outputs: the
+// padded key buffer (and value buffer) of span + 1 slots.
+template <typename K, bool kValues>
+constexpr size_t span_smem(int span) {
+  return repro::spad_slots<K>(span + 1) * sizeof(K) +
+         (kValues ? repro::spad_slots<uint32_t>(span + 1) * sizeof(uint32_t) : 0);
+}
+
 template <typename K, bool kValues>
 int launch(const void* a, const void* av, int64_t na, const void* b, const void* bv, int64_t nb,
            void* ok, void* ov, void* stream) {
   const int64_t n = na + nb;
   if (n == 0) return 0;
   constexpr int kSpanK = kSpan<kValues>;
-  constexpr size_t kSmem = repro::spad_slots<K>(kSpanK + 1) * sizeof(K) +
-                           (kValues ? repro::spad_slots<uint32_t>(kSpanK + 1) * sizeof(uint32_t) : 0);
+  constexpr size_t kSmem = span_smem<K, kValues>(kSpanK);
   const cudaError_t err = repro::allow_smem(merge_span_kernel<K, kValues>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t grid = (n + kSpanK - 1) / kSpanK;
@@ -241,8 +248,7 @@ int launch_rows_span(const void* a, const void* av, int64_t na, int64_t a_stride
   constexpr int kSpanR = kRowsSpanOf<kValues>;
   const int64_t spans_per_row = (n + kSpanR - 1) / kSpanR;
   if (rows * spans_per_row > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  constexpr size_t kSmem = repro::spad_slots<K>(kSpanR + 1) * sizeof(K) +
-                           (kValues ? repro::spad_slots<uint32_t>(kSpanR + 1) * sizeof(uint32_t) : 0);
+  constexpr size_t kSmem = span_smem<K, kValues>(kSpanR);
   const cudaError_t err = repro::allow_smem(merge_rows_span_kernel<K, kValues, kRagged>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_rows_span_kernel<K, kValues, kRagged>
@@ -256,7 +262,43 @@ int launch_rows_span(const void* a, const void* av, int64_t na, int64_t a_stride
   return static_cast<int>(cudaGetLastError());
 }
 
+// What the K1/K2 (K5-K8) launch on keys K requests (repro::smem_query).
+template <typename K, bool kValues>
+int64_t span_query(int64_t* static_bytes) {
+  return repro::smem_query(merge_span_kernel<K, kValues>, span_smem<K, kValues>(kSpan<kValues>), static_bytes);
+}
+
+template <typename K, bool kValues, bool kRagged>
+int64_t rows_query(int64_t* static_bytes) {
+  return repro::smem_query(merge_rows_span_kernel<K, kValues, kRagged>, span_smem<K, kValues>(kRowsSpanOf<kValues>),
+                           static_bytes);
+}
+
 }  // namespace
+
+// Keys by code, as kernels/merge_path.py numbers them: 0 int16, 1 int32,
+// 2 float32, 3 bfloat16.
+#define REPRO_BY_KEY(CODE, CALL)  \
+  switch (CODE) {                 \
+    case 0: {                     \
+      using K = int16_t;          \
+      return CALL;                \
+    }                             \
+    case 1: {                     \
+      using K = int32_t;          \
+      return CALL;                \
+    }                             \
+    case 2: {                     \
+      using K = float;            \
+      return CALL;                \
+    }                             \
+    case 3: {                     \
+      using K = repro::bf16;      \
+      return CALL;                \
+    }                             \
+    default:                      \
+      return -1;                  \
+  }
 
 #define REPRO_MERGE_SYMBOLS(SUFFIX, K)                                                            \
   int merge_##SUFFIX(const void* a, int64_t na, const void* b, int64_t nb, void* out, int tile,  \
@@ -314,6 +356,24 @@ int launch_rows_span(const void* a, const void* av, int64_t na, int64_t a_stride
   }
 
 extern "C" {
+// The dynamic shared memory each merge kernel's launch requests on keys of
+// `key` (the code above), and its static shared memory in *static_bytes
+// when not null: kernels/merge_path.py's smem_bytes must give the same.
+int64_t merge_smem_bytes(int key, int64_t* static_bytes) { REPRO_BY_KEY(key, (span_query<K, false>(static_bytes))) }
+int64_t merge_kv_smem_bytes(int key, int64_t* static_bytes) { REPRO_BY_KEY(key, (span_query<K, true>(static_bytes))) }
+int64_t merge_batched_smem_bytes(int key, int64_t* static_bytes) {
+  REPRO_BY_KEY(key, (rows_query<K, false, false>(static_bytes)))
+}
+int64_t merge_kv_batched_smem_bytes(int key, int64_t* static_bytes) {
+  REPRO_BY_KEY(key, (rows_query<K, true, false>(static_bytes)))
+}
+int64_t merge_batched_ragged_smem_bytes(int key, int64_t* static_bytes) {
+  REPRO_BY_KEY(key, (rows_query<K, false, true>(static_bytes)))
+}
+int64_t merge_kv_batched_ragged_smem_bytes(int key, int64_t* static_bytes) {
+  REPRO_BY_KEY(key, (rows_query<K, true, true>(static_bytes)))
+}
+
 REPRO_MERGE_SYMBOLS(i16, int16_t)
 REPRO_MERGE_SYMBOLS(i32, int32_t)
 REPRO_MERGE_SYMBOLS(f32, float)

@@ -109,6 +109,20 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// What a `<kernel>_smem_bytes` entry returns: the dynamic shared memory
+// `smem` that the kernel's launch requests, and, when `static_bytes` is not
+// null, the kernel's static shared memory there (cudaFuncGetAttributes); -1
+// if the attributes cannot be read.
+template <typename Kernel>
+inline int64_t smem_query(Kernel kernel, size_t smem, int64_t* static_bytes) {
+  if (static_bytes != nullptr) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+    *static_bytes = static_cast<int64_t>(attr.sharedSizeBytes);
+  }
+  return static_cast<int64_t>(smem);
+}
+
 // The slot of element i in a padded shared-memory buffer of T.
 template <typename T>
 __device__ __forceinline__ int spad(int i) {

@@ -233,14 +233,22 @@ __global__ void __launch_bounds__(kThreads)
   if (kValues) store_span(vo + o0, sv, n);
 }
 
+// The dynamic shared memory of a round's block: the padded key buffer (and
+// value buffer) of span + 1 slots.
+template <typename K, bool kValues>
+size_t round_smem(int64_t m, int64_t width) {
+  const int span = kThreads * outputs_per_thread<kValues>(m, width);
+  return static_cast<size_t>(spad_slots<K>(span + 1)) * sizeof(K) +
+         (kValues ? static_cast<size_t>(spad_slots<uint32_t>(span + 1)) * sizeof(uint32_t) : 0);
+}
+
 template <typename K, bool kValues>
 int launch(const void* kf, const void* vf, void* ko, void* vo, int width, int tile, int n_data_tiles,
            void* stream) {
   const int64_t m = static_cast<int64_t>(n_data_tiles) * tile;
   const int span = kThreads * outputs_per_thread<kValues>(m, width);
   const int64_t n_blocks = (m + span - 1) / span;
-  const size_t smem = static_cast<size_t>(spad_slots<K>(span + 1)) * sizeof(K) +
-                      (kValues ? static_cast<size_t>(spad_slots<uint32_t>(span + 1)) * sizeof(uint32_t) : 0);
+  const size_t smem = round_smem<K, kValues>(m, width);
   const cudaError_t err = allow_smem(sort_round_seg_kernel<K, kValues>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   sort_round_seg_kernel<K, kValues><<<static_cast<unsigned>(n_blocks + 1), kThreads, smem,
@@ -250,10 +258,33 @@ int launch(const void* kf, const void* vf, void* ko, void* vo, int width, int ti
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kValues>
+int64_t round_query(int key, int64_t m, int64_t width, int64_t* static_bytes) {
+  if (key == 0) {
+    return smem_query(sort_round_seg_kernel<int16_t, kValues>, round_smem<int16_t, kValues>(m, width), static_bytes);
+  }
+  if (key == 1) {
+    return smem_query(sort_round_seg_kernel<int32_t, kValues>, round_smem<int32_t, kValues>(m, width), static_bytes);
+  }
+  return -1;
+}
+
 }  // namespace
 }  // namespace repro
 
 extern "C" {
+
+// The dynamic shared memory a K3 (K4) round of m data keys in runs of
+// `width` requests, keys int16 (key 0) or int32 (key 1), and the kernel's
+// static shared memory in *static_bytes when not null: kernels/merge_path.py's
+// smem_bytes("round", ..., span=round_span(m, width, values)) must agree.
+int64_t sort_round_smem_bytes(int key, int64_t m, int64_t width, int64_t* static_bytes) {
+  return repro::round_query<false>(key, m, width, static_bytes);
+}
+
+int64_t sort_round_kv_smem_bytes(int key, int64_t m, int64_t width, int64_t* static_bytes) {
+  return repro::round_query<true>(key, m, width, static_bytes);
+}
 
 // `leaf` is the reference's level-2 leaf width; these kernels have no leaves
 // and ignore it (the round's output does not depend on it).

@@ -153,12 +153,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The dynamic shared memory of a block of kThreads: two padded key buffers
+// (and two value buffers) of kThreads * kE + 1 slots.
+template <typename K, bool kValues, int kThreads>
+constexpr size_t tiles_smem() {
+  constexpr int kSpan = kThreads * kE;
+  return 2 * (spad_slots<K>(kSpan + 1) * sizeof(K) +
+              (kValues ? spad_slots<uint32_t>(kSpan + 1) * sizeof(uint32_t) : 0));
+}
+
 template <typename K, bool kValues, int kThreads>
 int launch_blocks(const void* kin, const void* vin, void* kout, void* vout, int64_t n, int chunk,
                   void* stream) {
   constexpr int kSpan = kThreads * kE;
-  constexpr size_t kSmem = 2 * (spad_slots<K>(kSpan + 1) * sizeof(K) +
-                                 (kValues ? spad_slots<uint32_t>(kSpan + 1) * sizeof(uint32_t) : 0));
+  constexpr size_t kSmem = tiles_smem<K, kValues, kThreads>();
   const cudaError_t err = allow_smem(sort_tiles_kernel<K, kValues, kThreads>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_blocks = (n + kSpan - 1) / kSpan;
@@ -176,10 +184,33 @@ int launch(const void* kin, const void* vin, void* kout, void* vout, int64_t n, 
   return launch_blocks<K, kValues, 256>(kin, vin, kout, vout, n, chunk, stream);
 }
 
+// What the launch at `chunk` requests (the block `launch` picks for it).
+template <typename K, bool kValues>
+int64_t tiles_query(int chunk, int64_t* static_bytes) {
+  if (chunk <= kWarpSpan) {
+    return smem_query(sort_tiles_kernel<K, kValues, 32>, tiles_smem<K, kValues, 32>(), static_bytes);
+  }
+  return smem_query(sort_tiles_kernel<K, kValues, 256>, tiles_smem<K, kValues, 256>(), static_bytes);
+}
+
 }  // namespace
 }  // namespace repro
 
 extern "C" {
+
+// The dynamic shared memory S1's launch at `chunk` requests, keys int16
+// (key 0) or int32 (key 1), and the kernel's static shared memory in
+// *static_bytes when not null: kernels/merge_path.py's smem_bytes("tiles")
+// must agree.
+int64_t sort_tiles_smem_bytes(int key, int chunk, int64_t* static_bytes) {
+  if (key == 0) return repro::tiles_query<int16_t, false>(chunk, static_bytes);
+  return key == 1 ? repro::tiles_query<int32_t, false>(chunk, static_bytes) : -1;
+}
+
+int64_t sort_tiles_kv_smem_bytes(int key, int chunk, int64_t* static_bytes) {
+  if (key == 0) return repro::tiles_query<int16_t, true>(chunk, static_bytes);
+  return key == 1 ? repro::tiles_query<int32_t, true>(chunk, static_bytes) : -1;
+}
 
 int sort_tiles_i16(const void* kin, void* kout, int64_t n, int chunk, void* stream) {
   return repro::launch<int16_t, false>(kin, nullptr, kout, nullptr, n, chunk, stream);

@@ -417,9 +417,46 @@ bool valid(const void* dt, const void* x, const void* bm, const void* cm, const 
          (hstart == nullptr || chunk % kSteps == 0);
 }
 
+// What K9's launch requests: Layout::kBytes of dynamic shared memory, and
+// in *static_bytes (when not null) the larger static shared memory of the
+// two kernels (with and without checkpoints); -1 if it cannot be read.
+template <int ST, bool kDtB, bool kXB>
+int64_t scan_query(int64_t* static_bytes) {
+  if (static_bytes != nullptr) {
+    cudaFuncAttributes a0, a1;
+    if (cudaFuncGetAttributes(&a0, ssm_scan_kernel<ST, kDtB, kXB, false>) != cudaSuccess ||
+        cudaFuncGetAttributes(&a1, ssm_scan_kernel<ST, kDtB, kXB, true>) != cudaSuccess) {
+      return -1;
+    }
+    *static_bytes = static_cast<int64_t>(a0.sharedSizeBytes > a1.sharedSizeBytes ? a0.sharedSizeBytes
+                                                                                  : a1.sharedSizeBytes);
+  }
+  return Layout<ST, kDtB, kXB>::kBytes;
+}
+
+template <int ST>
+int64_t scan_query_dtypes(int flags, int64_t* static_bytes) {
+  switch (flags & (kDtBf16 | kXBf16)) {
+    case 0: return scan_query<ST, false, false>(static_bytes);
+    case kDtBf16: return scan_query<ST, true, false>(static_bytes);
+    case kXBf16: return scan_query<ST, false, true>(static_bytes);
+    default: return scan_query<ST, true, true>(static_bytes);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The dynamic shared memory one K9 launch requests at state width st with
+// the dtype flags of ssm_scan_fwd, 0 for a width the kernel refuses, and
+// its static shared memory in *static_bytes when not null:
+// kernels/ssm_scan.py's smem_bytes must give the same.
+int64_t ssm_scan_smem_bytes(int st, int flags, int64_t* static_bytes) {
+  if (st == 16) return scan_query_dtypes<16>(flags, static_bytes);
+  if (st == 8) return scan_query_dtypes<8>(flags, static_bytes);
+  return 0;
+}
 
 // One K9 launch on `stream`.  st must be 8 or 16; batch, seq and d_model at
 // least 1, d_model times the element size of dt and of x a multiple of 16

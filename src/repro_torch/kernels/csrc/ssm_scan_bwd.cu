@@ -559,9 +559,52 @@ bool valid(const BwdArgs& s, int64_t batch, int64_t seq, int64_t work) {
          work == work_floats(batch, seq, d, s.st);
 }
 
+// What K10's block kernel requests: Layout::kBytes of dynamic shared
+// memory, and its static shared memory in *static_bytes when not null (-1
+// if it cannot be read).  The reduction after it requests none.
+template <int ST, bool kDtB, bool kXB, bool kDyB, bool kBcB>
+int64_t bwd_query(int64_t* static_bytes) {
+  if (static_bytes != nullptr) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, ssm_scan_bwd_kernel<ST, kDtB, kXB, kDyB, kBcB>) != cudaSuccess) return -1;
+    *static_bytes = static_cast<int64_t>(attr.sharedSizeBytes);
+  }
+  return Layout<ST, kDtB, kXB, kDyB, kBcB>::kBytes;
+}
+
+template <int ST, bool kDtB, bool kXB, bool kDyB>
+int64_t bwd_query_bc(int flags, int64_t* sb) {
+  return flags & kBcBf16 ? bwd_query<ST, kDtB, kXB, kDyB, true>(sb) : bwd_query<ST, kDtB, kXB, kDyB, false>(sb);
+}
+
+template <int ST, bool kDtB, bool kXB>
+int64_t bwd_query_dy(int flags, int64_t* sb) {
+  return flags & kDyBf16 ? bwd_query_bc<ST, kDtB, kXB, true>(flags, sb) : bwd_query_bc<ST, kDtB, kXB, false>(flags, sb);
+}
+
+template <int ST, bool kDtB>
+int64_t bwd_query_x(int flags, int64_t* sb) {
+  return flags & kXBf16 ? bwd_query_dy<ST, kDtB, true>(flags, sb) : bwd_query_dy<ST, kDtB, false>(flags, sb);
+}
+
+template <int ST>
+int64_t bwd_query_dt(int flags, int64_t* sb) {
+  return flags & kDtBf16 ? bwd_query_x<ST, true>(flags, sb) : bwd_query_x<ST, false>(flags, sb);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The dynamic shared memory one K10 launch requests at state width st with
+// the dtype flags of ssm_scan_bwd, 0 for a width the kernel refuses, and its
+// static shared memory in *static_bytes when not null:
+// kernels/ssm_scan.py's bwd_smem_bytes must give the same.
+int64_t ssm_scan_bwd_smem_bytes(int st, int flags, int64_t* static_bytes) {
+  if (st == 16) return bwd_query_dt<16>(flags, static_bytes);
+  if (st == 8) return bwd_query_dt<8>(flags, static_bytes);
+  return 0;
+}
 
 // Float32 of the workspace one K10 call on these shapes takes.
 int64_t ssm_scan_bwd_work_floats(int64_t batch, int64_t seq, int d_model, int st) {

@@ -97,13 +97,38 @@ def _spad_slots(n: int, size: int) -> int:
     return -(-padded // vec) * vec
 
 
-def smem_bytes(kernel: str, key_bytes: int, values: bool = False, chunk: int = MAX_TILE) -> int:
+# K3/K4's block: threads, and the data blocks a round keeps by giving a thread
+# fewer outputs (kThreads and kMinBlocks in csrc/sort_round.cu).
+SORT_ROUND_THREADS = 256
+SORT_ROUND_MIN_BLOCKS = 128
+# the key code of each dtype in the C sources' `<kernel>_smem_bytes` entries
+KEY_CODE = {torch.int16: 0, torch.int32: 1, torch.float32: 2, torch.bfloat16: 3}
+
+
+def round_span(m: int, width: int, values: bool) -> int:
+    """Outputs per block of a K3 (K4 with ``values``) round of ``m`` data
+    keys in runs of ``width``: ``outputs_per_thread`` of csrc/sort_round.cu
+    (16 keys a thread, 8 with values, halved while the round would have
+    fewer than 128 blocks, never more than a pair) times its 256 threads."""
+    e = (SORT_ROUND_KV_SPAN if values else SORT_ROUND_SPAN) // SORT_ROUND_THREADS
+    while e > 1 and m < SORT_ROUND_MIN_BLOCKS * SORT_ROUND_THREADS * e:
+        e >>= 1
+    return SORT_ROUND_THREADS * min(e, 2 * width)
+
+
+def smem_bytes(kernel: str, key_bytes: int, values: bool = False, chunk: int = MAX_TILE,
+               span: Optional[int] = None) -> int:
     """The dynamic shared memory one block of ``kernel`` requests, as the
     C sources size it from the spans above: ``"merge"`` (K1/K2), ``"rows"``
-    (K5-K8), ``"round"`` (K3/K4, their widest block) and ``"tiles"`` (S1 at
-    ``chunk``, two buffers).  Values are 4 bytes."""
+    (K5-K8), ``"round"`` (K3/K4: its widest block, or the block of
+    ``span`` outputs a round's :func:`round_span` gives) and ``"tiles"``
+    (S1 at ``chunk``, two buffers).  Values are 4 bytes.  Each source's
+    ``<kernel>_smem_bytes`` returns what its launch requests, which the
+    card's check holds equal to this."""
     if kernel == "tiles":
         span = SORT_TILES_WARP_SPAN if chunk <= SORT_TILES_WARP_SPAN else MAX_TILE
+    elif kernel == "round" and span is not None:
+        pass
     else:
         span = {"merge": (MERGE_SPAN, MERGE_KV_SPAN), "rows": (MERGE_ROWS_SPAN, MERGE_ROWS_KV_SPAN),
                 "round": (SORT_ROUND_SPAN, SORT_ROUND_KV_SPAN)}[kernel][int(values)]

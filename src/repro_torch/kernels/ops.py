@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.registry import kernel_contract
 from repro_torch.core import batched as _bat
 from repro_torch.core import merge_path as _mp
 from repro_torch.runtime import faults as _faults
@@ -56,19 +57,22 @@ from . import merge_path as _kern
 from . import tune as _tune
 
 
-def _resolve(n: int, tile: Optional[int], leaf: Optional[int]) -> Tuple[int, int]:
-    """Fill unspecified tile/leaf from :func:`tune.pick`."""
-    t, s = _tune.pick(n)
+def _resolve(n: int, tile: Optional[int], leaf: Optional[int],
+             dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
+    """Fill unspecified tile/leaf from :func:`tune.pick` for ``n`` elements
+    of ``dtype``."""
+    t, s = _tune.pick(n, dtype)
     tile = t if tile is None else tile
     leaf = s if leaf is None else leaf
     return tile, max(1, min(leaf, tile))
 
 
-def _sort_tile(n: int, tile: Optional[int], leaf: Optional[int]) -> Tuple[int, int]:
+def _sort_tile(n: int, tile: Optional[int], leaf: Optional[int],
+               dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
     """Tile/leaf for the sorts.  The flat rounds need ``tile | 2 * width``
     with power-of-two widths, so a tile passed explicitly must be a power
     of two."""
-    tile, leaf = _resolve(n, tile, leaf)
+    tile, leaf = _resolve(n, tile, leaf, dtype)
     if tile < 1 or tile & (tile - 1):
         raise ValueError(f"sort tile must be a power of two (flat sort rounds require tile | 2 * width), got {tile}")
     return tile, leaf
@@ -120,7 +124,14 @@ def _ragged_verifier(a_lens, b_lens, bsz: int, na: int, nb: int):
 # merges
 # ---------------------------------------------------------------------------
 
+# Contracts (repro_torch.analysis.registry), with the reference's flags but one
+# difference: the reference's keys-only merges (merge, merge_batched) rank on
+# an unmasked path and state why ties are safe; every port kernel ends each
+# side of a merge by index, never by comparing against a sentinel
+# (csrc/segment_merge.cuh), so all the port's contracts are masked.
 
+
+@kernel_contract(kind="merge", masked_ranks=True)
 def merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None) -> torch.Tensor:
     """Stable A-priority merge of two sorted 1-D arrays.
 
@@ -129,8 +140,8 @@ def merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf:
     ``na + nb > tile``, the core rank merge otherwise.
     """
     n = a.shape[0] + b.shape[0]
-    tile, leaf = _resolve(n, tile, leaf)
     dtype = _mp.result_type(a.dtype, b.dtype)
+    tile, leaf = _resolve(n, tile, leaf, dtype)
 
     def run(a, b):
         if n <= tile:
@@ -142,6 +153,7 @@ def merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf:
                   verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="merge", carries_values=True, masked_ranks=True)
 def merge_kv(
     ak: torch.Tensor,
     av: torch.Tensor,
@@ -154,9 +166,9 @@ def merge_kv(
     """Stable A-priority key-value merge: one K2 launch when
     ``na + nb > tile``, the core rank merge otherwise."""
     n = ak.shape[0] + bk.shape[0]
-    tile, leaf = _resolve(n, tile, leaf)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
+    tile, leaf = _resolve(n, tile, leaf, kd)
 
     def run(ak, av, bk, bv):
         if n <= tile:
@@ -185,6 +197,7 @@ def _kv_rows(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     return k, v
 
 
+@kernel_contract(kind="merge", batched=True, masked_ranks=True)
 def merge_batched(
     a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None
 ) -> torch.Tensor:
@@ -195,8 +208,8 @@ def merge_batched(
     batched merge otherwise.
     """
     n = a.shape[1] + b.shape[1]
-    tile, leaf = _resolve(n, tile, leaf)
     dtype = _mp.result_type(a.dtype, b.dtype)
+    tile, leaf = _resolve(n, tile, leaf, dtype)
 
     def run(a, b):
         if n <= tile:
@@ -208,6 +221,7 @@ def merge_batched(
                   verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="merge", batched=True, carries_values=True, masked_ranks=True)
 def merge_kv_batched(
     ak: torch.Tensor,
     av: torch.Tensor,
@@ -221,9 +235,9 @@ def merge_kv_batched(
     the core batched merge otherwise.  The kernel carries int32 or float32
     values."""
     n = ak.shape[1] + bk.shape[1]
-    tile, leaf = _resolve(n, tile, leaf)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
+    tile, leaf = _resolve(n, tile, leaf, kd)
 
     def run(ak, av, bk, bv):
         if n <= tile:
@@ -238,6 +252,7 @@ def merge_kv_batched(
                   verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="merge", batched=True, ragged=True, masked_ranks=True)
 def merge_batched_ragged(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -254,8 +269,8 @@ def merge_batched_ragged(
     launch when ``na + nb > tile``, the core ragged merge otherwise.
     """
     (bsz, na), nb = a.shape, b.shape[1]
-    tile, leaf = _resolve(na + nb, tile, leaf)
     dtype = _mp.result_type(a.dtype, b.dtype)
+    tile, leaf = _resolve(na + nb, tile, leaf, dtype)
 
     def run(a, b, a_lens, b_lens):
         if na + nb <= tile:
@@ -271,6 +286,7 @@ def merge_batched_ragged(
                   verifier=_ragged_verifier(a_lens, b_lens, bsz, na, nb))
 
 
+@kernel_contract(kind="merge", batched=True, ragged=True, carries_values=True, masked_ranks=True)
 def merge_kv_batched_ragged(
     ak: torch.Tensor,
     av: torch.Tensor,
@@ -286,9 +302,9 @@ def merge_kv_batched_ragged(
     the core ragged merge otherwise.  Past each row's merged length the keys
     are sentinel and the values zero."""
     (bsz, na), nb = ak.shape, bk.shape[1]
-    tile, leaf = _resolve(na + nb, tile, leaf)
     kd = _mp.result_type(ak.dtype, bk.dtype)
     vd = _mp.result_type(av.dtype, bv.dtype)
+    tile, leaf = _resolve(na + nb, tile, leaf, kd)
 
     def run(ak, av, bk, bv, a_lens, b_lens):
         if na + nb <= tile:
@@ -305,6 +321,7 @@ def merge_kv_batched_ragged(
                   verifier=_ragged_verifier(a_lens, b_lens, bsz, na, nb))
 
 
+@kernel_contract(kind="merge_k", ragged=True, masked_ranks=True)
 def merge_k(
     runs: torch.Tensor,
     lens=None,
@@ -471,6 +488,7 @@ def _sort_meta(keys: torch.Tensor, tile: int, leaf: int, values: bool, ragged: b
     return _meta(n, keys.dtype, tile, leaf, batch=bsz, ragged=ragged, smem=smem)
 
 
+@kernel_contract(kind="sort", batched=True, masked_ranks=True, pow2_tile=True, differentiable=True)
 def sort_batched(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None) -> torch.Tensor:
     """Sort every row of ``(B, n)`` ascending.  The batch axis is folded into
     the run-pair axis, so a round is one launch whatever ``B`` is.
@@ -482,11 +500,13 @@ def sort_batched(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[
     n = x.shape[1]
     if n <= 1:
         return x
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, x.dtype)
     return _guard("sort_batched", (x,), lambda x: _sort_rows(x, tile, leaf), keys=(0,),
                   meta=_sort_meta(x, tile, leaf, values=False), verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="sort", batched=True, carries_values=True, masked_ranks=True, pow2_tile=True,
+                 differentiable=True)
 def sort_kv_batched(
     keys: torch.Tensor, values: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -498,21 +518,23 @@ def sort_kv_batched(
     n = keys.shape[1]
     if n <= 1:
         return keys, values
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, keys.dtype)
     return _guard("sort_kv_batched", (keys, values), lambda k, v: _sort_kv_rows(k, v, tile, leaf), keys=(0,),
                   meta=_sort_meta(keys, tile, leaf, values=True), verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="sort", masked_ranks=True, pow2_tile=True, differentiable=True)
 def sort(x: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None) -> torch.Tensor:
     """Bottom-up merge sort of a 1-D array: the rounds of :func:`sort_batched` on one row."""
     n = x.shape[0]
     if n <= 1:
         return x
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, x.dtype)
     return _guard("sort", (x,), lambda x: _sort_rows(x[None, :], tile, leaf)[0], keys=(0,),
                   meta=_sort_meta(x, tile, leaf, values=False), verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="sort", carries_values=True, masked_ranks=True, pow2_tile=True, differentiable=True)
 def sort_kv(
     keys: torch.Tensor, values: torch.Tensor, *, tile: Optional[int] = None, leaf: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -520,7 +542,7 @@ def sort_kv(
     n = keys.shape[0]
     if n <= 1:
         return keys, values
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, keys.dtype)
 
     def run(k, v):
         ks, vs = _sort_kv_rows(k[None, :], v[None, :], tile, leaf)
@@ -530,6 +552,8 @@ def sort_kv(
                   verifier=_res.sorted_verifier())
 
 
+@kernel_contract(kind="topk", batched=True, carries_values=True, masked_ranks=True, pow2_tile=True,
+                 differentiable=True)
 def topk_batched(
     x: torch.Tensor,
     k: int,
@@ -549,7 +573,7 @@ def topk_batched(
         raise ValueError(f"topk_batched expects (B, n) rows, got shape {tuple(x.shape)}")
     n = x.shape[1]
     k = min(k, n)
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, x.dtype)
 
     def run(x):
         top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf)[:, :k]
@@ -559,6 +583,8 @@ def topk_batched(
                   verifier=_res.topk_verifier())
 
 
+@kernel_contract(kind="topk", batched=True, ragged=True, carries_values=True, masked_ranks=True,
+                 pow2_tile=True, differentiable=True)
 def topk_batched_ragged(
     x: torch.Tensor,
     k: int,
@@ -581,7 +607,7 @@ def topk_batched_ragged(
     bsz, n = x.shape
     k = min(k, n)
     lens = _bat._as_lens(lens, bsz, n, x.device)
-    tile, leaf = _sort_tile(n, tile, leaf)
+    tile, leaf = _sort_tile(n, tile, leaf, x.dtype)
 
     def run(x, lens):
         top_idx = _argsort_batched(_mp.flip_desc(x), n, tile, leaf, lens)[:, :k]

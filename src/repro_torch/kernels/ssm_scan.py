@@ -37,6 +37,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis.registry import kernel_contract
 from repro_torch.runtime import resilience as _res
 
 from . import _build
@@ -128,6 +129,7 @@ def ssm_scan_ref(
     return (y, h, hstart) if checkpoints else (y, h)
 
 
+@kernel_contract(kind="scan", batched=True, differentiable=True)
 def ssm_scan(
     dt: torch.Tensor,  # (B, S, D), float32 or bfloat16
     x: torch.Tensor,  # (B, S, D)
@@ -401,6 +403,39 @@ def _backward(saved, dy, dh_final):
     grads = ssm_scan_bwd(dt, x, bmat, cmat, a, hstart, dy.contiguous(), dh_final.float().contiguous(),
                          chunk=GRAD_CHUNK)
     return tuple(gr.to(op.dtype) for gr, op in zip(grads, (dt, x, bmat, cmat, a)))
+
+
+def smem_bytes(st: int, dt_bf16: bool, x_bf16: bool) -> int:
+    """The dynamic shared memory of one K9 block (``Layout<ST, kDtB,
+    kXB>::kBytes`` of csrc/ssm_scan.cu), 0 for a state width the kernel
+    refuses: 128 bytes of barriers; a ring of 4 stages of a 32-step tile
+    (dt and x of 32 channels, B and C as bfloat16 bits and as float32);
+    3 buffers of the consumer warps' float32 parts of y; 4 y tiles in x's
+    dtype.  It does not depend on B, C or a being bfloat16."""
+    if st not in STATES:
+        return 0
+    steps, ch, warps = TILE, 32, st // 4
+    dt_b, x_b = steps * ch * (2 if dt_bf16 else 4), steps * ch * (2 if x_bf16 else 4)
+    stage = dt_b + x_b + 2 * steps * st * 2 + 2 * steps * st * 4
+    return 128 + 4 * stage + 3 * 4 * steps * warps * ch + 4 * x_b
+
+
+def bwd_smem_bytes(st: int, dt_bf16: bool, x_bf16: bool, dy_bf16: bool, bc_bf16: bool) -> int:
+    """The dynamic shared memory of one K10 block (``Layout<ST, kDtB, kXB,
+    kDyB, kBcB>::kBytes`` of csrc/ssm_scan_bwd.cu), 0 for a state width the
+    kernel refuses: 128 bytes of barriers; a ring of 2 stages of a 32-step
+    tile of 64 channels (dt, x, dy, B, C and the float32 checkpoint); the
+    float2 slots of decays and parts; two tiles of dB and dC per half; each
+    warp's B and C as float32.  The reduction after it requests none."""
+    if st not in STATES:
+        return 0
+    steps, ch, warps = TILE, 64, st
+
+    def size(bf16: bool) -> int:
+        return 2 if bf16 else 4
+
+    stage = steps * ch * (size(dt_bf16) + size(x_bf16) + size(dy_bf16)) + 2 * steps * st * size(bc_bf16) + ch * st * 4
+    return 128 + 2 * stage + steps * warps * 32 * 8 + 2 * 2 * 2 * steps * st * 4 + warps * steps * 16
 
 
 def fused_hbm_bytes(bsz: int, s: int, d: int, st: int, elem: int = 2) -> int:

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, is_dtensor, write_token_sharded
 
 from .layers import apply_rope, make_rope
 
@@ -201,9 +201,13 @@ def decode_attention(
         k = apply_rope(k.reshape(b, 1, num_kv, head_dim), sin, cos).reshape(b, num_kv, head_dim)
     pos = pos.long()
     slot = pos % s_cache if window > 0 else torch.clamp(pos, max=s_cache - 1)
-    bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, slot] = k.to(cache_k.dtype)
-    cache_v[bidx, slot] = v.to(cache_v.dtype)
+    if is_dtensor(cache_k):  # a sharded cache: each device writes its own shard (no copy of the cache)
+        write_token_sharded(cache_k, slot, k)
+        write_token_sharded(cache_v, slot, v)
+    else:
+        bidx = torch.arange(b, device=x.device)
+        cache_k[bidx, slot] = k.to(cache_k.dtype)
+        cache_v[bidx, slot] = v.to(cache_v.dtype)
     cache_k = constrain(cache_k, "act_batch", "act_kv_seq", None, None)
     cache_v = constrain(cache_v, "act_batch", "act_kv_seq", None, None)
     # absolute position held by each cache slot

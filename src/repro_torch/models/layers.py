@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, contiguous_shards
 
 
 def profiler_range(name: str):
@@ -100,7 +100,7 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     with profiler_range("model.mlp"):
         up = x @ params["wi"]
         gate = x @ params["wg"] if "wg" in params else None
-        return constrain(_act(act, gate, up), "act_batch", "act_seq", "act_ff") @ params["wo"]
+        return contiguous_shards(constrain(_act(act, gate, up), "act_batch", "act_seq", "act_ff")) @ params["wo"]
 
 
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:

@@ -39,8 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import max_sentinel, merge_sort_kv_batched, merge_sort_kv_batched_ragged, searchsorted_batched
-from repro_torch.core.batched import _mask_rows
-from repro_torch.parallel.sharding import constrain
+from repro_torch.core.batched import _mask_rows, _scatter_rows
+from repro_torch.parallel.sharding import constrain, contiguous_shards
 
 from .layers import dense_init, mlp_init
 from .layers import profiler_range as _range
@@ -131,7 +131,7 @@ def _positions_merge_path_batched(
     if slot_lens is not None:
         pos_sorted = torch.where(ranks[None, :] < slot_lens[:, None], pos_sorted, _MASKED)
     # each row's sorted slots are a permutation: scatter the positions back to slot order
-    return torch.zeros((b, n), dtype=torch.int32, device=dev).scatter_(1, sorted_slot.long(), pos_sorted)
+    return _scatter_rows(torch.zeros((b, n), dtype=torch.int32, device=dev), sorted_slot.long(), pos_sorted)
 
 
 def _positions_merge_path(flat_expert: torch.Tensor, e: int) -> torch.Tensor:
@@ -223,7 +223,7 @@ def moe_apply(
     with _range("moe.experts"):
         up = torch.einsum("becd,edf->becf", buf, params["wi"])
         gate = torch.einsum("becd,edf->becf", buf, params["wg"])
-        h = constrain(_silu(gate) * up, "act_batch", "act_experts", None, None)
+        h = contiguous_shards(constrain(_silu(gate) * up, "act_batch", "act_experts", None, None))
         out_buf = torch.einsum("becf,efd->becd", h, params["wo"])  # (B, E, cap, d)
     with _range("moe.combine"):
         vals = out_buf[rows, fe, torch.clamp(pos, max=cap - 1).long()].reshape(b, s, k, d)

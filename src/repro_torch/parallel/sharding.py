@@ -36,12 +36,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
-import sys
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch._device import is_dtensor
 
 Spec = Tuple  # one entry per tensor dimension: None, a mesh dimension's name or a tuple of names
 
@@ -95,10 +97,34 @@ def current_env() -> Optional[ShardingEnv]:
     return getattr(_STATE, "env", None)
 
 
+@functools.cache
+def register_rules() -> None:
+    """Give DTensor the sharding rules the port's operations need and it
+    lacks.  One so far: ``aten.searchsorted.Tensor`` (the MoE dispatch's
+    expert offsets, ``core.batched.searchsorted_batched``): sorted rows and
+    queries sharded alike on a leading (batch) dimension give insertion
+    points sharded the same way; any other layout is replicated first.
+
+    Called by :func:`sharding_env` and :func:`put_tree`, where a run starts
+    to use DTensors, and not at import: importing the DTensor package costs
+    about a second, which a process that never shards should not pay."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.searchsorted.Tensor)
+    def _searchsorted(sorted_sequence, queries, *args, **kwargs):
+        rest = [None] * len(args)
+        out = [([Replicate()], [Replicate(), Replicate()] + rest)]
+        for d in range(min(sorted_sequence.ndim, queries.ndim) - 1):
+            out.append(([Shard(d)], [Shard(d), Shard(d)] + rest))
+        return out
+
+
 @contextlib.contextmanager
 def sharding_env(mesh, rules: MeshRules):
     """Make ``(mesh, rules)`` the layout :func:`constrain` enforces in this
     thread, for the ``with`` block."""
+    register_rules()
     prev = current_env()
     _STATE.env = ShardingEnv(mesh, rules)
     try:
@@ -126,12 +152,6 @@ def placements(spec: Spec, mesh) -> tuple:
     return tuple(out)
 
 
-def is_dtensor(x) -> bool:
-    """Whether ``x`` is a DTensor (without importing the DTensor package)."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
-
-
 def constrain(x: torch.Tensor, *act_axes: Optional[str]) -> torch.Tensor:
     """``x`` redistributed to the layout of its logical activation axes
     under the active :func:`sharding_env`; ``x`` itself with no env or when
@@ -144,6 +164,80 @@ def constrain(x: torch.Tensor, *act_axes: Optional[str]) -> torch.Tensor:
     if tuple(x.placements) == want:
         return x
     return x.redistribute(env.mesh, want)
+
+
+def _dense_shard(x):
+    """``x`` with a dense layout, globally and in its local shard: a copy
+    where either is strided.  ``DTensor.contiguous`` judges the global
+    layout only, which can be dense while the shard is not, and a product
+    views the shard by the global strides, so both are looked at."""
+    if is_dtensor(x) and not (x.is_contiguous() and x._local_tensor.is_contiguous()):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+class _Contiguous(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _dense_shard(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dense_shard(g)
+
+
+def contiguous_shards(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a contiguous local shard, and its gradient too, when ``x``
+    is a DTensor; ``x`` itself otherwise.
+
+    A redistribution between two shardings (an all-to-all) can leave the
+    local shard strided.  An einsum then permutes and views its operand,
+    and the local view of a strided shard raises ("view size is not
+    compatible with input tensor's size and stride").  The gradient meets
+    the same when it flows back through the redistribution, so both
+    directions are made contiguous here, where the product takes its
+    operand."""
+    return _Contiguous.apply(x) if is_dtensor(x) else x
+
+
+def write_token_sharded(cache, slot, new) -> None:
+    """``cache[r, slot[r]] = new[r]`` for every batch row ``r``, in place in
+    the local shard of a DTensor ``cache`` ``(B, S, ...)`` (the decode
+    cache, sharded on batch and kv-seq).
+
+    DTensor has no rule for an ``index_put_`` into a dimension sharded over
+    the context axis.  So each device writes its local shard itself: the
+    rows of ``slot`` ``(B,)`` and ``new`` ``(B, ...)`` (DTensors, or plain
+    tensors that every device holds whole) that its shard holds, each slot
+    shifted by the shard's offset on the kv-seq dimension.  A row whose
+    slot lies in another device's shard writes back the value it holds at
+    the clamped slot, so nothing changes there and no branch depends on the
+    data (the dry run's meta tensors have none).  The write is one
+    ``index_put_`` on the local tensor, which a dispatch mode around the
+    call sees and counts."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    local = cache.to_local()
+
+    def rows(t, dims):
+        """``t``'s local block under the cache's sharding of ``dims`` (cache
+        dimension per dimension of ``t``), replicated elsewhere."""
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        want = [Shard(dims.index(p.dim)) if isinstance(p, Shard) and p.dim in dims else Replicate()
+                for p in cache.placements]
+        return t.redistribute(mesh, want).to_local()
+
+    rows_slot = rows(slot, (0,))
+    rows_new = rows(new, (0,) + tuple(range(2, cache.ndim))).to(local.dtype)
+    s0, ns = offset[1], shape[1]
+    held = ((rows_slot >= s0) & (rows_slot < s0 + ns)).reshape((-1,) + (1,) * (rows_new.ndim - 1))
+    idx = torch.clamp(rows_slot - s0, 0, max(ns - 1, 0))
+    ridx = torch.arange(local.shape[0], device=local.device)
+    local[ridx, idx] = torch.where(held, rows_new, local[ridx, idx])
 
 
 def make_rules(mesh, fsdp_over_pod: bool = False, context_parallel: bool = False) -> MeshRules:
@@ -289,6 +383,8 @@ def put_tree(tree, shardings):
     if isinstance(tree, dict):
         return {k: put_tree(v, shardings[k]) for k, v in tree.items()}
     from torch.distributed.tensor import distribute_tensor
+
+    register_rules()
 
     return distribute_tensor(tree, shardings[0], shardings[1])
 

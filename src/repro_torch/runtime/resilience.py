@@ -44,6 +44,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import checker as _checker
+from repro_torch.analysis.registry import REGISTRY
 from repro_torch.telemetry import get_telemetry
 
 from . import faults as _faults
@@ -69,10 +71,10 @@ __all__ = [
     "verify_active",
 ]
 
-SMEM_PER_BLOCK = 232448  # 227 KB: the dynamic shared memory a block may request on Hopper
+# the dynamic shared memory a block may request, as the kernel checker's budget
+# states it (its one definition: repro_torch.analysis.checker)
+SMEM_PER_BLOCK = int(_checker.SMEM_BUDGET_BYTES["h100"] * _checker.SMEM_USABLE_FRACTION)
 _MAX_N = 2**31 - 1  # ranks and cut tables are int32
-# the ops whose flat rounds need tile | 2 * width: a power-of-two tile
-_POW2_TILE_OPS = ("sort", "sort_kv", "sort_batched", "sort_kv_batched", "topk_batched", "topk_batched_ragged")
 
 
 class FallbackWarning(UserWarning):
@@ -205,12 +207,14 @@ def preflight(op: str, meta: Optional[dict], label: str, index: int) -> List[str
     ``smem``: the dynamic shared memory of the largest block the call
     launches, from ``kernels.merge_path.smem_bytes``).  Checks ``0 <= n <=
     int32 max``, ``tile >= 1``, ``1 <= leaf <= tile``, a power-of-two tile
-    for the sorts and top-ks, and ``smem`` against :data:`SMEM_PER_BLOCK`;
-    an injected ``vmem`` fault counts as a breach of that last check.  A
-    call without ``smem`` (``merge_k``, whose rounds are guarded calls of
-    their own, and ``ssm_scan``, whose request K9's source bounds at
-    compile time) skips it, as the reference's checks only its Pallas
-    attempts.
+    where the op's contract says ``pow2_tile`` (the registry of
+    :mod:`repro_torch.analysis.registry`), and ``smem`` against
+    :data:`SMEM_PER_BLOCK`, the checker's budget; an injected ``vmem``
+    fault counts as a breach of that last check.  A call without ``smem``
+    (``merge_k``, whose rounds are guarded calls of their own, and
+    ``ssm_scan``, whose request K9's source fixes at compile time and
+    ``chip_smoke.py`` holds equal to the checker's model) skips it, as the
+    reference's checks only its Pallas attempts.
     """
     if meta is None:
         return []
@@ -219,10 +223,11 @@ def preflight(op: str, meta: Optional[dict], label: str, index: int) -> List[str
     if n is not None and not (0 <= int(n) <= _MAX_N):
         reasons.append(f"n={n} outside [0, {_MAX_N}]")
     tile, leaf = meta.get("tile"), meta.get("leaf")
+    contract = REGISTRY.get(op)
     if tile is not None:
         if int(tile) < 1:
             reasons.append(f"tile={tile} < 1")
-        elif op in _POW2_TILE_OPS and int(tile) & (int(tile) - 1):
+        elif contract is not None and contract.pow2_tile and int(tile) & (int(tile) - 1):
             reasons.append(f"tile={tile} not a power of two ({op})")
         if leaf is not None and not (1 <= int(leaf) <= int(tile)):
             reasons.append(f"leaf={leaf} outside [1, tile={tile}]")

@@ -44,6 +44,9 @@ PARALLEL_MODULES = {"repro_torch.configs.nemotron_4_340b", "repro_torch.parallel
                     "repro_torch.parallel.compression", "repro_torch.serving.context_parallel",
                     "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
                     "repro_torch.launch.roofline"}
+# the analysis slice's modules
+ANALYSIS_MODULES = {"repro_torch.analysis", "repro_torch.analysis.__main__", "repro_torch.analysis.checker",
+                    "repro_torch.analysis.lattice", "repro_torch.analysis.registry"}
 
 
 def _forbidden(module: str) -> bool:
@@ -56,12 +59,13 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 68  # every module was walked
+    assert int(count) >= 73  # every module was walked
     assert TRAIN_MODULES <= set(names.split(","))
     assert DIST_MODULES <= set(names.split(","))
     assert RUNTIME_MODULES <= set(names.split(","))
     assert VLM_AUDIO_MODULES <= set(names.split(","))
     assert PARALLEL_MODULES <= set(names.split(","))
+    assert ANALYSIS_MODULES <= set(names.split(","))
     assert bad == "[]"
 
 

@@ -10,7 +10,12 @@
 * ``state_shardings``' bytes on rank 0 against the sum of the reference's
   ``shard_shape`` bytes, at full width;
 * ``model_flops`` and the ``Roofline`` terms on the H100's constants;
-* the dry run of reduced tinyllama on a fake ``(2, 2)`` mesh.
+* the dry run of reduced tinyllama (train, prefill and decode, whose
+  token is written into each device's shard of the context-sharded cache)
+  and of reduced moonshot (train and prefill: the MoE dispatch's
+  ``searchsorted`` and scatters on DTensors) on a fake ``(2, 2)`` mesh;
+* ``write_token_sharded`` on every rank's shard against the global write,
+  and a plain-tensor ``decode_attention`` writing its cache in place.
 
 The fake groups and the forced device count each run in a process of their
 own (a process holds one default group, and jax fixes its device count at
@@ -29,6 +34,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
@@ -98,14 +104,16 @@ _PORT_SIDE = textwrap.dedent("""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.specs import state_shardings
-    from repro_torch.parallel.sharding import make_rules, placements, put_tree
+    from repro_torch.parallel.sharding import make_rules, placements, put_tree, write_token_sharded
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     meshes, cases, cells = json.loads(sys.argv[1])
     def mesh(name):
         shape, names = meshes[name]
         return DeviceMesh("cpu", torch.arange(4).reshape(shape), mesh_dim_names=tuple(names))
     def entry(e):
         return tuple(e) if isinstance(e, list) else e
-    out = {"local": [[] for _ in cases], "state": [], "dryrun": {}}
+    out = {"local": [[] for _ in cases], "state": [], "dryrun": {}, "write": []}
     for rank in range(4):
         dist.init_process_group("fake", rank=rank, world_size=4, store=FakeStore())
         for i, (name, shape, spec) in enumerate(cases):
@@ -113,6 +121,23 @@ _PORT_SIDE = textwrap.dedent("""
             x = torch.arange(int(torch.tensor(shape).prod())).reshape(shape)
             local = distribute_tensor(x, m, placements(tuple(map(entry, spec)), m), src_data_rank=None).to_local()
             out["local"][i].append(local.tolist())
+        # the decode write into this rank's shard of a (B, S, K, hd) cache sharded on batch and kv-seq
+        m = mesh("2x2")
+        full = torch.arange(4 * 8 * 2 * 3, dtype=torch.float32).reshape(4, 8, 2, 3)
+        cache = distribute_tensor(full.clone(), m, [Shard(0), Shard(1)], src_data_rank=None)
+        slot, new = torch.tensor([0, 5, 3, 7]), -1.0 - torch.arange(4 * 2 * 3, dtype=torch.float32).reshape(4, 2, 3)
+        write_token_sharded(cache, slot, new)
+        want = full.clone()
+        want[torch.arange(4), slot] = new
+        shape, offset = compute_local_shape_and_global_offset(cache.shape, m, cache.placements)
+        region = want[offset[0]: offset[0] + shape[0], offset[1]: offset[1] + shape[1]]
+        # the dry run's counter sees the write on the local shard: it reads and writes the shard at least once
+        counter = dryrun.StepCounter()
+        outer, inner = counter.modes()
+        with outer, inner:
+            write_token_sharded(cache, slot, new)
+        local_bytes = cache.to_local().numel() * cache.to_local().element_size()
+        out["write"].append(bool(torch.equal(cache.to_local(), region)) and counter.bytes >= 2 * local_bytes)
         if rank == 0:
             for arch, name, over_pod in cells:
                 m = mesh(name)
@@ -120,12 +145,17 @@ _PORT_SIDE = textwrap.dedent("""
                 out["state"].append(dryrun.tree_bytes(put_tree(state, shard)))
             # chunks of 4096 keys past the dense threshold: the reduced config's 32 would loop 1024 times a layer
             cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), attn_chunk=4096)
-            for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            moe = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), attn_chunk=4096)
+            cells = [(cfg, s) for s in ("train_4k", "prefill_32k", "decode_32k")]
+            cells += [(moe, s) for s in ("train_4k", "prefill_32k")]
+            for c, shape in cells:
                 try:
-                    rec = dryrun.lower_cell(cfg.name, shape, False, cfg_override=cfg, mesh=make_debug_mesh(2, 2))
+                    rec = dryrun.lower_cell(c.name, shape, False, cfg_override=c, mesh=make_debug_mesh(2, 2))
                 except Exception as e:
-                    rec = dryrun.error_record(cfg.name, shape, False, e)
-                out["dryrun"][shape] = {k: rec.get(k) for k in ("status", "op", "chips", "memory_analysis", "roofline")}
+                    rec = dryrun.error_record(c.name, shape, False, e)
+                key = shape if c is cfg else f"moe/{shape}"
+                out["dryrun"][key] = {k: rec.get(k) for k in ("status", "op", "error", "chips", "memory_analysis",
+                                                               "roofline")}
         dist.destroy_process_group()
     print(json.dumps(out))
 """)
@@ -215,19 +245,57 @@ def test_state_shardings_bytes_match_the_reference_shard_shapes(sides):
     assert port["state"] == ref["state"]
 
 
+def _assert_ok_cell(rec, wire: bool = True):
+    assert rec["status"] == "ok" and rec["chips"] == 4, rec
+    roof, mem = rec["roofline"], rec["memory_analysis"]
+    assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0
+    assert roof["wire_bytes_per_device"] > 0 or not wire
+    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0 and mem["temp_bytes"] > 0
+    # every device does at least its share of the model's flops
+    assert roof["flops_per_device"] * 4 >= roof["model_flops"]
+
+
 def test_dry_run_of_reduced_tinyllama_on_a_fake_mesh(sides):
     _, port = sides
     cells = port["dryrun"]
     for shape in ("train_4k", "prefill_32k"):
-        rec = cells[shape]
-        assert rec["status"] == "ok" and rec["chips"] == 4, rec
-        roof, mem = rec["roofline"], rec["memory_analysis"]
-        assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0 and roof["wire_bytes_per_device"] > 0
-        assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0 and mem["temp_bytes"] > 0
-        # every device does at least its share of the model's flops
-        assert roof["flops_per_device"] * 4 >= roof["model_flops"]
-    # decode writes its token into a context-sharded cache in place, which DTensor cannot
-    assert cells["decode_32k"]["status"] == "error" and cells["decode_32k"]["op"] == "aten.index_put_.default"
+        _assert_ok_cell(cells[shape])
+    # decode writes its token into each device's shard of the context-sharded cache, in place
+    _assert_ok_cell(cells["decode_32k"], wire=False)
+
+
+def test_dry_run_of_reduced_moe_on_a_fake_mesh(sides):
+    """The MoE dispatch on DTensors: the routing's insertion points
+    (``aten.searchsorted.Tensor``, given a rule), the merges' scatters
+    into fresh buffers, and the experts' products on shards that a
+    redistribution left strided, forward and backward."""
+    _, port = sides
+    for shape in ("train_4k", "prefill_32k"):
+        _assert_ok_cell(port["dryrun"][f"moe/{shape}"])
+
+
+def test_sharded_token_write_matches_the_global_write_on_every_rank(sides):
+    _, port = sides
+    assert port["write"] == [True] * 4
+
+
+def test_plain_decode_writes_the_cache_in_place():
+    from repro_torch.models.attention import decode_attention
+
+    gen = torch.Generator().manual_seed(0)
+    b, s, kv, hd, heads, d = 3, 8, 2, 4, 4, 16
+    params = {w: torch.randn(shape, generator=gen) for w, shape in
+              (("wq", (d, heads * hd)), ("wk", (d, kv * hd)), ("wv", (d, kv * hd)), ("wo", (heads * hd, d)))}
+    cache_k, cache_v = torch.zeros((b, s, kv, hd)), torch.zeros((b, s, kv, hd))
+    ptrs = (cache_k.data_ptr(), cache_v.data_ptr())
+    x, pos = torch.randn((b, 1, d), generator=gen), torch.tensor([0, 5, 11])
+    _, ck, cv = decode_attention(params, x, cache_k, cache_v, pos, num_heads=heads, num_kv=kv, head_dim=hd,
+                                 rope_theta=0.0)
+    assert (ck.data_ptr(), cv.data_ptr()) == ptrs and ck is cache_k and cv is cache_v
+    slots = torch.tensor([0, 5, 7])  # clamped to the last slot
+    want_k = (x[:, 0] @ params["wk"]).reshape(b, kv, hd)
+    assert torch.equal(cache_k[torch.arange(b), slots], want_k)
+    assert int((cache_k.abs().sum((2, 3)) > 0).sum()) == b  # nothing else written
 
 
 @pytest.mark.parametrize("arch", list_archs())
